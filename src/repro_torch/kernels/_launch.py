@@ -1,0 +1,42 @@
+"""Checks shared by the kernel wrappers before they hand pointers to CUDA."""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+HEAD_DIMS = (64, 128)
+
+
+def check_inputs(op: str, tensors: Sequence[torch.Tensor], head_dim: int) -> None:
+    """Raise unless the kernel can read every tensor as it is: bf16 on one
+    CUDA device, last dim contiguous, every row 16-byte aligned (the
+    kernels load 8 bf16 values at a time), head dim 64 or 128."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{op}: tensors on {t.device} and {dev}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{op}: the CUDA kernel takes bfloat16, got {t.dtype}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{op}: last dim must be contiguous, strides {t.stride()}")
+        if t.data_ptr() % 16 or any(
+                s % 8 for n, s in zip(t.shape[:-1], t.stride()[:-1]) if n > 1):
+            raise ValueError(f"{op}: rows must be 16-byte aligned, strides "
+                             f"{t.stride()}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"{op}: head dim {head_dim} not in {HEAD_DIMS}")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def raise_on_error(op: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{op}: CUDA kernel launch failed with error {err}")

@@ -1,0 +1,68 @@
+"""Causal GQA flash attention: the wrapper of the CUDA kernel in
+``csrc/flash_attention.cu``.
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention`` (the Pallas
+TPU kernel).  Same function and layout: q (B,H,Sq,D), k/v (B,KV,Sk,D) ->
+(B,H,Sq,D), causal from position 0, optional sliding window and tanh cap.
+
+Bound on the H100: the FLOPs for long prompts (~17 GFLOP at Sq = 2048,
+H = 32, D = 64: ~17 us at 989 TFLOP/s bf16); the launch for the serving
+path's prompts of <= 64 tokens.  The kernel is a simple fp32 CUDA-core
+design (one block per 64-row q tile and head, K/V tiles of 64 staged in
+shared memory, tiles past the causal diagonal or before the window never
+loaded); see the source for what a faster design changes.
+
+CPU tensors take the plain version (``ref.flash_attention_ref``); CUDA
+tensors launch the kernel or raise.  ``flash_attention.launches`` counts
+kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, _launch, ref
+
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+             + [ctypes.c_longlong] * 12
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                ctypes.c_void_p])
+
+
+def _kernel():
+    fn = _build.library("flash_attention").flash_attention_bf16
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    return fn
+
+
+def flash_attention(q, k, v, *, scale: float, window: int = 0,
+                    cap: float = 0.0):
+    """q (B,H,Sq,D), k/v (B,KV,Sk,D) -> (B,H,Sq,D). Causal.
+
+    Strided views are taken as they are (the model passes transposed views
+    of its (B,S,H,D) tensors); the output has q's strides."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if H % KV or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, scale=scale, window=window,
+                                       cap=cap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _launch.check_inputs("flash_attention", (q, k, v), D)
+    out = torch.empty_like(q)
+    err = _kernel()(
+        _launch.ptr(q), _launch.ptr(k), _launch.ptr(v), _launch.ptr(out),
+        B, H, KV, Sq, Sk, D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        float(scale), int(window), float(cap), q.device.index or 0,
+        _launch.stream(q))
+    _launch.raise_on_error("flash_attention", err)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,106 @@
+"""Block (slot) composition: pre-norm mixer + residual, pre-norm MLP +
+residual, optional post-norms — the port of ``repro.models.blocks`` for
+``("attn", "dense")`` slots.  Other slot kinds (sliding-window, MLA,
+Mamba, MoE) raise ``NotImplementedError`` until their slice is ported
+(ROADMAP A11)."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict
+
+from repro_torch.configs.base import ModelConfig, SlotSpec
+from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.common import ParamSpec, rms_norm
+
+PORTED_SLOTS = (("attn", "dense"),)
+
+
+@dataclass
+class RunConfig:
+    """Runtime (non-architecture) knobs."""
+
+    attn_impl: str = "dense"  # dense | kernel (the counterpart of JAX's pallas)
+
+
+def _check_slot(slot: SlotSpec) -> None:
+    if (slot.mixer, slot.mlp) not in PORTED_SLOTS:
+        raise NotImplementedError(
+            f"slot ({slot.mixer!r}, {slot.mlp!r}) is not ported yet; the port "
+            f"runs {PORTED_SLOTS} (ROADMAP A11)")
+
+
+# ---------------------------------------------------------------------------
+# Specs
+# ---------------------------------------------------------------------------
+
+
+def slot_specs(cfg: ModelConfig, slot: SlotSpec, layers: int) -> Dict[str, Any]:
+    _check_slot(slot)
+    la = ("layers",)
+    L = (layers,)
+    s: Dict[str, Any] = {
+        "mixer_norm": ParamSpec(L + (cfg.d_model,), la + ("embed",), init="zeros"),
+        "mixer": attn.attn_specs(cfg, slot.mixer, layers),
+    }
+    if cfg.use_post_norm:
+        s["mixer_post_norm"] = ParamSpec(L + (cfg.d_model,), la + ("embed",), init="zeros")
+    if cfg.d_ff:
+        s["mlp_norm"] = ParamSpec(L + (cfg.d_model,), la + ("embed",), init="zeros")
+        s["mlp"] = moe_lib.dense_mlp_specs(cfg.d_model, cfg.d_ff, layers)
+        if cfg.use_post_norm:
+            s["mlp_post_norm"] = ParamSpec(L + (cfg.d_model,), la + ("embed",), init="zeros")
+    return s
+
+
+def _mlp_residual(p, h, cfg: ModelConfig):
+    if "mlp_norm" not in p:
+        return h
+    u = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
+    u = moe_lib.dense_mlp(p["mlp"], u)
+    if cfg.use_post_norm:
+        u = rms_norm(u, p["mlp_post_norm"], cfg.norm_eps)
+    return h + u
+
+
+# ---------------------------------------------------------------------------
+# Forward (full sequence: prefill)
+# ---------------------------------------------------------------------------
+
+
+def slot_forward(p, h, positions, cfg: ModelConfig, slot: SlotSpec,
+                 run: RunConfig):
+    """Returns (h, cache, aux_loss)."""
+    _check_slot(slot)
+    u = rms_norm(h, p["mixer_norm"], cfg.norm_eps)
+    u, cache = attn.gqa_forward(p["mixer"], u, positions, cfg, slot.mixer,
+                                impl=run.attn_impl)
+    if cfg.use_post_norm:
+        u = rms_norm(u, p["mixer_post_norm"], cfg.norm_eps)
+    return _mlp_residual(p, h + u, cfg), cache, 0.0
+
+
+# ---------------------------------------------------------------------------
+# Decode (single token, cached)
+# ---------------------------------------------------------------------------
+
+
+def slot_decode(p, h, pos, cache, cfg: ModelConfig, slot: SlotSpec,
+                run: RunConfig):
+    _check_slot(slot)
+    u = rms_norm(h, p["mixer_norm"], cfg.norm_eps)
+    u, new_cache = attn.gqa_decode(p["mixer"], u, pos, cache, cfg, slot.mixer,
+                                   impl=run.attn_impl)
+    if cfg.use_post_norm:
+        u = rms_norm(u, p["mixer_post_norm"], cfg.norm_eps)
+    return _mlp_residual(p, h + u, cfg), new_cache
+
+
+def slot_cache_specs(cfg: ModelConfig, slot: SlotSpec, layers: int, batch: int,
+                     s_max: int, dtype: str = "bfloat16",
+                     kv_quant: bool = False):
+    _check_slot(slot)
+    window = attn._window_for(cfg, slot.mixer)
+    eff = min(s_max, window) if window else s_max
+    return attn.attn_cache_specs(cfg, slot.mixer, layers, batch, eff, dtype,
+                                 kv_quant=kv_quant)

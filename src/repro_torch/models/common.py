@@ -1,0 +1,150 @@
+"""Shared model machinery: ParamSpec trees (the single source of truth for
+shapes and init), norms, rope, softcap — the port of ``repro.models.common``.
+
+A model's ``*_specs(config)`` returns a nested dict whose leaves are
+:class:`ParamSpec`; :func:`materialize` turns it into a dict of tensors of
+the same structure.  Parameters are named by their JAX path string
+(``slots/slot0/mixer/wq``) and keep JAX's layouts, so a JAX parameter tree
+converts name for name (``repro_torch.models.convert``).
+"""
+from __future__ import annotations
+
+import zlib
+from dataclasses import dataclass
+from typing import Any, Callable, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on.  ``cuda`` without a card raises:
+    nothing in the port moves to the CPU unless the caller asked for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# ParamSpec
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # logical axis name per dim (None = replicated)
+    dtype: str = "float32"
+    init: str = "normal"  # normal | zeros | ones
+    scale: float = 1.0  # stddev multiplier / fan-in handled by caller
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def tree_items(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    """(path, leaf) pairs of a nested dict, in sorted key order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from tree_items(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def tree_map(fn: Callable, tree):
+    """Apply ``fn`` to every leaf of a nested dict."""
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def path_str(path: Tuple[str, ...]) -> str:
+    return "/".join(path)
+
+
+def materialize(specs, seed: int, device):
+    """Randomly initialize real parameters from a ParamSpec tree.
+
+    Each leaf draws from its own ``torch.Generator`` seeded from ``seed``
+    and the crc32 of its path (the JAX package folds the same crc32 into
+    its PRNG key), so a leaf's values do not depend on which other leaves
+    exist.  Normal leaves use std ``scale / sqrt(fan_in)`` with fan_in the
+    second-to-last dim, as JAX does.  The numbers differ from JAX's: tests
+    that compare the two convert JAX's parameters."""
+    dev = resolve_device(device)
+
+    def init_leaf(path, spec: ParamSpec):
+        dt = torch_dtype(spec.dtype)
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=dt, device=dev)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dt, device=dev)
+        if spec.init != "normal":
+            raise NotImplementedError(
+                f"{path_str(path)}: init {spec.init!r} belongs to the SSM "
+                "slice (ROADMAP A11)")
+        g = torch.Generator(device=dev)
+        g.manual_seed(int(seed) * 2**31 + zlib.crc32(path_str(path).encode()) % 2**31)
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        std = spec.scale / np.sqrt(max(fan_in, 1))
+        x = torch.randn(spec.shape, generator=g, dtype=torch.float32, device=dev)
+        return (x * std).to(dt)
+
+    return _build(specs, (), init_leaf)
+
+
+def _build(tree, prefix, fn):
+    return {k: _build(v, prefix + (k,), fn) if isinstance(v, dict)
+            else fn(prefix + (k,), v) for k, v in tree.items()}
+
+
+def param_count(specs) -> int:
+    return int(sum(int(np.prod(s.shape)) for _, s in tree_items(specs)))
+
+
+# ---------------------------------------------------------------------------
+# Numerics
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if not cap:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding (half-split). x: (..., S, H, D_rot); positions: (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., :, None].float() * freqs  # (..., S, half)
+    cos = torch.cos(angles)[..., :, None, :]  # (..., S, 1, half)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)

@@ -1,0 +1,44 @@
+"""Import guard: the port (``src/repro_torch``) and ``chip_smoke.py`` import
+neither JAX nor anything of the JAX package ``repro``; they keep their own
+copies of what they need.  A static AST scan, so it also covers imports
+inside functions."""
+import ast
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+              and node.func.attr == "import_module" and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)):
+            yield node.lineno, node.args[0].value
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_repro_imports(path):
+    bad = [f"{path.relative_to(REPO)}:{line}: {mod}"
+           for line, mod in _imports(path) if _forbidden(mod)]
+    assert not bad, "\n".join(bad)
+
+
+def test_scan_sees_every_module():
+    assert len(FILES) > 20 and (REPO / "chip_smoke.py").exists()
+    assert _forbidden("repro.models") and _forbidden("jax.numpy")
+    assert not _forbidden("repro_torch.models")
