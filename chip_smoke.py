@@ -25,6 +25,27 @@ Phases, each fatal on failure (exit code != 0, no result line):
    tokens and no logits row may hold a NaN or inf.
 4. reference — one full-width prefill and one decode step with the
    kernels against the plain dense path on the same weights and prompt.
+5. paged and scan kernels — the paged decode kernel on the tuning shape
+   and on PagedKVCache pools of full-width granite-3-2b (40 layers, KV 8,
+   D 64, kv_block 16; ragged rows, non-contiguous tables from admissions
+   and releases, a strided layer view; s_max 512, and S = 4096 with window
+   and cap): bitwise equal to the linear decode kernel on the gathered
+   cache and within the bf16 tolerance of the plain version.  The SSD scan
+   kernel at the tuning shapes (chunks 32/64/128) and at mamba2-780m width
+   (L 2048, H 48, P 64, N 128, chunk 256) against ref.ssd_scan_ref.  Times
+   as in phase 2; the paged kernel's library yardstick is gather_kv_blocks
+   followed by SDPA, timed together; the scan has no single PyTorch call.
+6. mamba layer — one full-width mamba2-780m ssm_forward layer (random
+   weights from seed 0, x (1, 2048, 1536) bf16) with impl="kernel" against
+   impl="auto" on the same values in fp32, at tests/test_kernels.py's bf16
+   SSD tolerance; the scan kernel's launch counter must move by one.
+7. tune — the kernel-choice stage of the paper's procedure:
+   bench_kernels(device="cuda") at the JAX package's defaults (seq 128,
+   repeats 2, scan chunks 32/64/128), with all four launch counters zeroed
+   just before and read just after (each must be (1 + repeats) x its
+   kernel variants); no kernel variant may be in ``errors``, and each is
+   held to its plain variant on the same inputs.  Then host_microbench()
+   and choose_conv_algs(128, the card's memory).
 
 Then it prints the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line, and, last, the
@@ -41,7 +62,20 @@ from pathlib import Path
 H100_HBM_BPS = 3.35e12   # H100 SXM data sheet, bytes/s
 H100_BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 tensor-core FLOP/s
 TOL = 3e-2  # bf16 rtol = atol, as tests/test_kernels.py
+SSD_RTOL, SSD_ATOL = 5e-2, 1e-1  # tests/test_kernels.py's bf16 SSD tolerance
 LAYERS = 40  # granite-3-2b
+REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention.py:81",
+    "decode_attention": "src/repro/kernels/decode_attention.py:103",
+    "paged_decode_attention": "src/repro/kernels/decode_attention.py:145",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:73",
+}
+SOURCES = {
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
+    "paged_decode_attention": "src/repro_torch/csrc/decode_attention.cu",
+    "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+}
 
 
 def fail(msg: str) -> None:
@@ -160,6 +194,15 @@ def decode_case(torch, mods, *, B, S, pos, window=0, cap=0.0, H=32, KV=8,
                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
 
 
+def print_cases(cases) -> None:
+    for name, _, r in cases:
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3e}  "
+              f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
+              f"library {lib} ms", flush=True)
+
+
 def reference_check(torch, M, RunConfig, materialize, cfg, dev="cuda",
                     prompt_len=64):
     """Full-width prefill + one decode step through the kernels against the
@@ -204,6 +247,232 @@ def reference_check(torch, M, RunConfig, materialize, cfg, dev="cuda",
             fail(f"{what} logits: kernels and dense path differ by {err}")
 
 
+def within(got, want, rtol=TOL, atol=TOL):
+    err = (got.float() - want.float()).abs()
+    return bool((err <= atol + rtol * want.float().abs()).all()), \
+        err.max().item()
+
+
+def paged_case(torch, mods, name, q, kp, vp, table, pos, *, window=0,
+               cap=0.0, kernel_table=None):
+    """The paged kernel on pools (N,KV,bs,D) (strided views allowed) and a
+    table (B,nb): bitwise equal to the linear kernel on the gathered cache,
+    within the bf16 tolerance of the plain version.  ``kernel_table`` is
+    the table the kernel gets (entries past a row's length poisoned with
+    -1: the kernel must never read them); the gather takes ``table``."""
+    dec_k, ref, ops = mods["dec_k"], mods["ref"], mods["ops"]
+    F = torch.nn.functional
+    kt = table if kernel_table is None else kernel_table
+    B, H, D = q.shape
+    KV, bs = kp.shape[1], kp.shape[2]
+    S = table.shape[1] * bs
+    scale = D ** -0.5
+    got = dec_k.paged_decode_attention(q, kp, vp, kt, pos, scale=scale,
+                                       window=window, cap=cap)
+    sync(torch)
+    kl = ops.gather_kv_blocks(kp.transpose(1, 2), table)  # (B,S,KV,D)
+    vl = ops.gather_kv_blocks(vp.transpose(1, 2), table)
+    lin = dec_k.decode_attention(q, kl.transpose(1, 2), vl.transpose(1, 2),
+                                 pos, scale=scale, window=window, cap=cap)
+    sync(torch)
+    if not torch.equal(got, lin):
+        fail(f"{name}: paged kernel differs from the linear kernel on the "
+             f"gathered cache by {(got.float() - lin.float()).abs().max()}")
+    want = ref.paged_decode_attention_ref(q, kp, vp, table, pos, scale=scale,
+                                          window=window, cap=cap)
+    ok, err = within(got, want)
+    if not ok:
+        fail(f"{name}: max |err| {err} outside the bf16 tolerance")
+    ms = time_ms(torch, lambda: dec_k.paged_decode_attention(
+        q, kp, vp, kt, pos, scale=scale, window=window, cap=cap))
+    plain_ms = time_ms(torch, lambda: ref.paged_decode_attention_ref(
+        q, kp, vp, table, pos, scale=scale, window=window, cap=cap), iters=5)
+    library_ms = None
+    if not cap:  # SDPA has no tanh cap
+        kpos = torch.arange(S, device=q.device)
+        mask = kpos[None, :] <= pos[:, None].long()
+        if window:
+            mask &= (pos[:, None].long() - kpos[None, :]) < window
+        mask = mask[:, None, None, :]
+
+        def library():  # the gather and the attention, timed together
+            k_lin = ops.gather_kv_blocks(kp.transpose(1, 2), table)
+            v_lin = ops.gather_kv_blocks(vp.transpose(1, 2), table)
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k_lin.transpose(1, 2), v_lin.transpose(1, 2),
+                attn_mask=mask, scale=scale, enable_gqa=True)
+        library_ms = time_ms(torch, library)
+    keys = sum(p + 1 - (max(0, p - window + 1) if window else 0)
+               for p in pos.tolist())  # cache positions the rows read
+    blocks = sum(p // bs + 1 for p in pos.tolist())  # table entries read
+    nbytes = 2 * (2 * B * H * D + 2 * keys * KV * D) + 4 * (B + blocks)
+    b_ms, b_by = bound(nbytes, 4 * D * H * keys)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
+
+
+def granite_pools(torch, PagedKVCache, cfg, *, s_max, lengths, layer=17,
+                  seed=5):
+    """A PagedKVCache of full-width granite-3-2b (pools (N, 40, bs, KV, D)
+    bf16, max_batch 4 rows' worth of blocks) filled with random values.
+    Filler requests are admitted and released between the rows, so the
+    rows' tables are ragged and non-contiguous.  Returns the layer's pools
+    as strided kernel-layout views (N, KV, bs, D), the table (0-padded for
+    the gather, -1-padded for the kernel) and pos = length - 1."""
+    import numpy as np
+    bs = 16
+    kv = PagedKVCache(cfg, block_size=bs, n_blocks=4 * (s_max // bs),
+                      s_max=s_max, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pools = [kv._pools[("slots", "slot0", leaf)] for leaf in ("k", "v")]
+    for pool in pools:
+        pool.copy_(torch.randn(pool.shape, generator=g, device="cuda"))
+    tok = iter(range(1, 10 ** 6))  # distinct prompts: no prefix sharing
+    rows = []
+    for i, n in enumerate(lengths):
+        filler = 100 + i
+        kv.admit(filler, np.array([next(tok)]), s_max // (4 * (i + 1)))
+        kv.admit(i, np.array([next(tok)]), n)
+        rows.append(kv._tables[i])
+        kv.release(filler)
+    nb = max(len(t) for t in rows)
+    table = torch.zeros((len(rows), nb), dtype=torch.int32, device="cuda")
+    poisoned = torch.full_like(table, -1)
+    for r, t in enumerate(rows):
+        table[r, :len(t)] = torch.tensor(t, dtype=torch.int32)
+        poisoned[r, :len(t)] = table[r, :len(t)]
+    if all(t == sorted(t) and t[-1] - t[0] == len(t) - 1 for t in rows):
+        fail("granite_pools: every table is contiguous")
+    kp, vp = (p[:, layer].transpose(1, 2) for p in pools)
+    pos = torch.tensor([n - 1 for n in lengths], dtype=torch.int32,
+                       device="cuda")
+    return kp, vp, table, poisoned, pos
+
+
+def ssd_case(torch, mods, name, *, B, L, H, P, N, chunk, seed=7):
+    """The scan kernel on model-layout views (x (B,L,H,P) and dt (B,L,H)
+    transposed, as ssm_forward passes them) against ref.ssd_scan_ref."""
+    ssd_k, ref = mods["ssd_k"], mods["ref"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, L, H, P, generator=g, device="cuda").to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, L, H, generator=g, device="cuda")).to(torch.bfloat16)
+    a = -torch.exp(torch.randn(H, generator=g, device="cuda") * 0.5)
+    b = torch.randn(B, L, N, generator=g, device="cuda").to(torch.bfloat16)
+    c = torch.randn(B, L, N, generator=g, device="cuda").to(torch.bfloat16)
+    args = (x.transpose(1, 2), dt.transpose(1, 2), a, b, c)
+    y, h = ssd_k.ssd_scan(*args, chunk=chunk)
+    sync(torch)
+    wy, wh = ref.ssd_scan_ref(*args, chunk=chunk)
+    ok_y, err = within(y, wy)
+    ok_h, err_h = within(h, wh, 1e-3, 1e-3)  # fp32 both, sums reordered
+    if not (ok_y and ok_h):
+        fail(f"{name}: max |err| y {err}, h {err_h} outside the tolerance")
+    ms = time_ms(torch, lambda: ssd_k.ssd_scan(*args, chunk=chunk))
+    plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(*args, chunk=chunk),
+                       iters=5)
+    Q = min(chunk, L)
+    tri = Q * (Q + 1) // 2  # (i, j) pairs of a chunk the causal mask keeps
+    nc = L // Q
+    # C B^T once per (batch, chunk) (it is shared by the heads); per head
+    # and chunk the masked product with x, C h and the state update
+    flops = 2 * B * nc * (tri * N + H * (tri * P + 2 * Q * N * P))
+    nbytes = (2 * 2 * B * L * H * P + 2 * B * L * H + 2 * 2 * B * L * N
+              + 4 * H + 4 * B * H * N * P)
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def mamba_layer_check(torch, ssm, materialize, get_config, ssd_k):
+    """One full-width mamba2-780m mixer layer: the scan on the kernel
+    against ssm_forward's plain chunked path.  The plain path runs in fp32
+    on the same bf16-rounded weights and input: in bf16, ssd_chunked rounds
+    the cumsum of the log decay to bf16 (an ulp of 0.5 at |cl| ~ 100), which
+    alone moves the layer's output by more than the tolerance (printed
+    below as the bf16 plain path's distance, for information)."""
+    cfg = get_config("mamba2-780m")
+    p = materialize(ssm.ssm_specs(cfg, 1), 0, "cuda")
+    p = {k: v[0].to(torch.bfloat16) for k, v in p.items()}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(1, 2048, cfg.d_model, generator=g,
+                    device="cuda").to(torch.bfloat16)
+    ssd_k.ssd_scan.launches = 0
+    out, cache = ssm.ssm_forward(p, x, None, cfg, impl="kernel")
+    sync(torch)
+    if ssd_k.ssd_scan.launches != 1:
+        fail(f"mamba layer: {ssd_k.ssd_scan.launches} scan launches, not 1")
+    p32 = {k: v.float() for k, v in p.items()}
+    want, want_cache = ssm.ssm_forward(p32, x.float(), None, cfg, impl="auto")
+    bf16_auto, _ = ssm.ssm_forward(p, x, None, cfg, impl="auto")
+    if out.shape != want.shape or not bool(torch.isfinite(out).all()):
+        fail(f"mamba layer: output {tuple(out.shape)} or not finite")
+    ok, err = within(out, want, SSD_RTOL, SSD_ATOL)
+    ok_h, err_h = within(cache["state"], want_cache["state"], SSD_RTOL,
+                         SSD_ATOL)
+    print(f"[mamba] mamba2-780m layer, x (1, 2048, {cfg.d_model}) bf16, "
+          f"chunk {cfg.ssm_chunk}: kernel vs plain fp32 max |diff| out "
+          f"{err:.4f}, state {err_h:.4f} (rtol {SSD_RTOL}, atol {SSD_ATOL}); "
+          f"plain bf16 vs plain fp32 max |diff| out "
+          f"{(bf16_auto.float() - want).abs().max().item():.4f}; max |out| "
+          f"{want.abs().max().item():.3f}; scan launches "
+          f"{ssd_k.ssd_scan.launches}", flush=True)
+    if not (ok and ok_h):
+        fail(f"mamba layer: kernel path differs from the plain path by "
+             f"{err} (out), {err_h} (state)")
+
+
+def tune_phase(torch, autotune, ops, wrappers):
+    """bench_kernels on the card with every launch counter zeroed just
+    before and read just after; returns the launches."""
+    repeats, chunks = 2, (32, 64, 128)
+    for fn in wrappers.values():
+        fn.launches = 0
+    res = autotune.bench_kernels(seq=128, repeats=repeats, ssd_chunks=chunks,
+                                 device="cuda")
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    for op, entry in res.items():
+        bad = {n: e for n, e in entry["errors"].items()
+               if n.startswith("kernel")}
+        if bad:
+            fail(f"tune: {op} kernel variants raised: {bad}")
+        print(f"[tune] {op}: chosen {entry['chosen']}; times "
+              + ", ".join(f"{n} {t * 1e3:.4f} ms"
+                          for n, t in entry["times_s"].items()), flush=True)
+    per_variant = 1 + repeats
+    want = {"flash_attention": per_variant, "decode_attention": per_variant,
+            "paged_decode_attention": per_variant,
+            "ssd_scan": per_variant * len(chunks)}
+    if launches != want:
+        fail(f"tune: launches {launches} != {want}")
+    for op in ops.TUNABLE_OPS:  # the kernel variants against the plain ones
+        inputs = ops.tune_inputs(op, seq=128, device="cuda")
+        cands = ops.tune_candidates(op, ssd_chunks=chunks)
+        plain = cands["gather_ref" if "gather_ref" in cands else "ref"](*inputs)
+        for name, fn in cands.items():
+            if not name.startswith("kernel"):
+                continue
+            got = fn(*inputs)
+            sync(torch)
+            pairs = zip(got, plain) if isinstance(got, tuple) else [(got, plain)]
+            for i, (g_, w_) in enumerate(pairs):
+                tol = (1e-3, 1e-3) if g_.dtype == torch.float32 else (TOL, TOL)
+                ok, err = within(g_, w_, *tol)
+                if not ok:
+                    fail(f"tune: {op}/{name} output {i} differs from the "
+                         f"plain variant by {err}")
+    print(f"[tune] launches {launches}; every kernel variant within "
+          "tolerance of its plain variant", flush=True)
+    print(f"[tune] host_microbench {json.dumps(autotune.host_microbench())}")
+    mem = torch.cuda.get_device_properties(0).total_memory
+    conv = autotune.choose_conv_algs(128, mem)
+    print(f"[tune] choose_conv_algs(128, {mem}): M_bound "
+          f"{conv['m_bound_bytes']:.4e} B; "
+          + ", ".join(f"{l['layer']} {l['chosen']}" for l in conv["layers"]),
+          flush=True)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -218,12 +487,16 @@ def main() -> None:
 
     from repro_torch.api import JobSpec, Session
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import _build, ref
+    from repro_torch.core import autotune
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ssd_scan as ssd_k
     from repro_torch.models import model as M
+    from repro_torch.models import ssm
     from repro_torch.models.blocks import RunConfig
     from repro_torch.models.common import materialize
+    from repro_torch.serve.kvcache import PagedKVCache
 
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}",
@@ -240,7 +513,8 @@ def main() -> None:
                 print(f"[build] {name}: {line.strip()}")
 
     # 2. kernels ---------------------------------------------------------------
-    mods = {"fa_k": fa_k, "dec_k": dec_k, "ref": ref}
+    mods = {"fa_k": fa_k, "dec_k": dec_k, "ssd_k": ssd_k, "ref": ref,
+            "ops": ops}
     cases = []
     for S in (8, 16, 32, 64):  # the serving path's prompt buckets
         cases.append((f"flash_attention[S={S}]", "flash_attention",
@@ -260,12 +534,7 @@ def main() -> None:
                   "decode_attention",
                   decode_case(torch, mods, B=4, S=4096, pos=ragged,
                               window=1024, cap=30.0)))
-    for name, _, r in cases:
-        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3e}  "
-              f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
-              f"library {lib} ms", flush=True)
+    print_cases(cases)
 
     # 3. serve -----------------------------------------------------------------
     spec = JobSpec(arch="granite-3-2b", reduced=False, requests=8, n_new=32,
@@ -304,6 +573,58 @@ def main() -> None:
     # 4. reference -------------------------------------------------------------
     reference_check(torch, M, RunConfig, materialize, get_config("granite-3-2b"))
 
+    # 5. paged and scan kernels ------------------------------------------------
+    new_cases = []
+    q, kp, vp, table, pos = ops.tune_inputs("paged_decode_attention", seq=128)
+    new_cases.append(("paged_decode_attention[tune: B=1,H=KV=2,S=128,bs=16]",
+                      "paged_decode_attention",
+                      paged_case(torch, mods, "paged tune", q, kp, vp, table,
+                                 pos)))
+    granite = get_config("granite-3-2b")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for label, s_max, lengths, window, cap in [
+            ("B=4,s_max=512", 512, [100, 300, 50, 512], 0, 0.0),
+            ("B=4,S=4096,window=1024,cap=30", 4096, [4096, 1000, 2048, 17],
+             1024, 30.0)]:
+        kp, vp, table, poisoned, pos = granite_pools(
+            torch, PagedKVCache, granite, s_max=s_max, lengths=lengths)
+        q = torch.randn(4, granite.num_heads, granite.head_dim, generator=g,
+                        device="cuda").to(torch.bfloat16)
+        name = f"paged_decode_attention[granite pools,{label}]"
+        new_cases.append((name, "paged_decode_attention",
+                          paged_case(torch, mods, name, q, kp, vp, table, pos,
+                                     window=window, cap=cap,
+                                     kernel_table=poisoned)))
+        del kp, vp
+    for chunk in (32, 64, 128):
+        name = f"ssd_scan[tune: B=1,H=2,L=128,P=32,N=16,chunk={chunk}]"
+        new_cases.append((name, "ssd_scan",
+                          ssd_case(torch, mods, name, B=1, L=128, H=2, P=32,
+                                   N=16, chunk=chunk)))
+    name = "ssd_scan[mamba2-780m: B=1,L=2048,H=48,P=64,N=128,chunk=256]"
+    new_cases.append((name, "ssd_scan",
+                      ssd_case(torch, mods, name, B=1, L=2048, H=48, P=64,
+                               N=128, chunk=256)))
+    print_cases(new_cases)
+    print("[kernel] paged: bitwise equal to the linear kernel on the gathered "
+          "cache in every case; library = gather_kv_blocks + SDPA, timed "
+          "together. ssd_scan: library null, no single PyTorch call computes "
+          "the SSD scan", flush=True)
+    cases += new_cases
+
+    # 6. mamba layer -----------------------------------------------------------
+    mamba_layer_check(torch, ssm, materialize, get_config, ssd_k)
+
+    # 7. tune ------------------------------------------------------------------
+    tuned = tune_phase(torch, autotune, ops, {
+        "flash_attention": fa_k.flash_attention,
+        "decode_attention": dec_k.decode_attention,
+        "paged_decode_attention": dec_k.paged_decode_attention,
+        "ssd_scan": ssd_k.ssd_scan})
+    # B1 and B2 keep the serve phase's counts; B3 and B4 run on this path
+    for kernel in ("paged_decode_attention", "ssd_scan"):
+        launches[kernel] = tuned[kernel]
+
     leaked = sorted(n for n in sys.modules
                     if n.split(".")[0] in ("jax", "jaxlib", "repro"))
     if leaked:
@@ -314,13 +635,8 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": f"src/repro_torch/csrc/{kernel}.cu",
-         "replaces": {"flash_attention":
-                      "src/repro/kernels/flash_attention.py:81",
-                      "decode_attention":
-                      "src/repro/kernels/decode_attention.py:103"}[kernel],
-         "launches": launches[kernel], **r}
+        {"name": name, "route": "cuda", "source": SOURCES[kernel],
+         "replaces": REPLACES[kernel], "launches": launches[kernel], **r}
         for name, kernel, r in cases]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,11 @@
 - ``flash_attention`` (csrc/flash_attention.cu) replaces
   ``repro.kernels.flash_attention.flash_attention``;
 - ``decode_attention`` (csrc/decode_attention.cu) replaces
-  ``repro.kernels.decode_attention.decode_attention``;
+  ``repro.kernels.decode_attention.decode_attention`` and, through the
+  same kernel with a block-table tile load, ``paged_decode_attention``;
+- ``ssd_scan`` (csrc/ssd_scan.cu) replaces
+  ``repro.kernels.ssd_scan.ssd_scan``;
 - ``ref`` holds their plain PyTorch versions; ``ops`` the model-layout
-  wrappers; ``_build`` compiles the sources with nvcc at first use.
+  wrappers and the tuning registry; ``_build`` compiles the sources with
+  nvcc at first use.
 """

@@ -2,17 +2,19 @@
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 HEAD_DIMS = (64, 128)
 
 
-def check_inputs(op: str, tensors: Sequence[torch.Tensor], head_dim: int) -> None:
+def check_inputs(op: str, tensors: Sequence[torch.Tensor],
+                 head_dim: Optional[int] = None) -> None:
     """Raise unless the kernel can read every tensor as it is: bf16 on one
     CUDA device, last dim contiguous, every row 16-byte aligned (the
-    kernels load 8 bf16 values at a time), head dim 64 or 128."""
+    kernels load 8 bf16 values at a time), and, for the attention kernels,
+    head dim 64 or 128."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
@@ -25,7 +27,7 @@ def check_inputs(op: str, tensors: Sequence[torch.Tensor], head_dim: int) -> Non
                 s % 8 for n, s in zip(t.shape[:-1], t.stride()[:-1]) if n > 1):
             raise ValueError(f"{op}: rows must be 16-byte aligned, strides "
                              f"{t.stride()}")
-    if head_dim not in HEAD_DIMS:
+    if head_dim is not None and head_dim not in HEAD_DIMS:
         raise ValueError(f"{op}: head dim {head_dim} not in {HEAD_DIMS}")
 
 

@@ -1,11 +1,12 @@
 """Plain PyTorch versions of the hand-written kernels, in kernel layout.
 
 Each computes the same function as its kernel, in fp32, with the same
-masks and conventions: masked scores are ``NEG_INF = -2e38`` (not -inf),
-the softmax denominator is clamped to ``1e-30``, the result is cast to
-q's dtype.  The kernel wrappers run these for CPU tensors; the tests hold
-them to the JAX package's Pallas kernels, and ``chip_smoke.py`` holds the
-CUDA kernels to them on the card.
+masks and conventions.  Attention: masked scores are ``NEG_INF = -2e38``
+(not -inf), the softmax denominator is clamped to ``1e-30``, the result is
+cast to q's dtype.  SSD scan: fp32 cumsum and state, y cast to x's dtype,
+the final state kept in fp32.  The kernel wrappers run these for CPU
+tensors; the tests hold them to the JAX package's Pallas kernels, and
+``chip_smoke.py`` holds the CUDA kernels to them on the card.
 """
 from __future__ import annotations
 
@@ -59,3 +60,56 @@ def decode_attention_ref(q, k, v, pos, *, scale, window=0, cap=0.0):
         mask = mask & ((p - kpos) < window)
     out = _softmax_pv(s, mask, vf)
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, table, pos, *, scale,
+                               window=0, cap=0.0):
+    """q (B,H,D), pools (N,KV,bs,D), table (B,nb), pos (B,) -> (B,H,D):
+    :func:`decode_attention_ref` on the linear caches gathered through the
+    table (the JAX package's ``gather_ref`` tuning variant).  Every table
+    entry is read."""
+    def gather(pool):  # (N,KV,bs,D) -> (B,nb,bs,KV,D) -> (B,KV,nb*bs,D)
+        g = pool.transpose(1, 2)[table.long()]
+        return g.reshape(g.shape[0], -1, *g.shape[3:]).transpose(1, 2)
+
+    return decode_attention_ref(q, gather(k_pool), gather(v_pool), pos,
+                                scale=scale, window=window, cap=cap)
+
+
+def ssd_scan_ref(x, dt, a_neg, b, c, *, chunk=256):
+    """Mamba-2 SSD chunked scan, the function of the Pallas body
+    ``repro/kernels/ssd_scan.py::_kernel``: x (B,H,L,P), dt (B,H,L),
+    a_neg (H,), b/c (B,L,N) -> y (B,H,L,P) in x's dtype, h_final
+    (B,H,N,P) fp32.  ``L % min(chunk, L) == 0``.
+
+    The body's steps, chunk by chunk for every (batch, head) at once, on
+    the inputs cast to fp32: the cumsum of dt * a, the intra-chunk term
+    ``(C Bᵀ ∘ L ∘ dt) x``, the carried state's term ``C h · exp(cl)`` and
+    the state update.  The causal mask is applied before the ``exp`` (the
+    Pallas body exponentiates first, which gives ``inf`` above the
+    diagonal)."""
+    B, H, L, P = x.shape
+    N = b.shape[-1]
+    Q = min(chunk, L)
+    if L % Q:
+        raise ValueError(f"ssd_scan_ref: L={L} is not a multiple of chunk {Q}")
+    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
+    a = a_neg.float()[None, :, None]  # (1,H,1)
+    causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for s in range(0, L, Q):
+        xc = xf[:, :, s:s + Q]  # (B,H,Q,P)
+        dtc = dtf[:, :, s:s + Q]  # (B,H,Q)
+        bc = bf[:, None, s:s + Q]  # (B,1,Q,N)
+        cc = cf[:, None, s:s + Q]
+        cl = torch.cumsum(dtc * a, dim=-1)  # (B,H,Q)
+        diff = cl[..., :, None] - cl[..., None, :]  # (B,H,Q(i),Q(j))
+        lmat = torch.exp(diff.masked_fill(~causal, float("-inf")))
+        w = torch.matmul(cc, bc.transpose(-1, -2)) * lmat * dtc[..., None, :]
+        y = torch.matmul(w, xc) + torch.matmul(cc, h) * torch.exp(cl)[..., None]
+        ys.append(y)
+        decay_end = torch.exp(cl[..., -1:] - cl) * dtc  # (B,H,Q)
+        h = h * torch.exp(cl[..., -1])[..., None, None] + torch.matmul(
+            bc.transpose(-1, -2), xc * decay_end[..., None])
+    return torch.cat(ys, dim=2).to(x.dtype), h

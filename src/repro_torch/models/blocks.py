@@ -2,7 +2,8 @@
 residual, optional post-norms — the port of ``repro.models.blocks`` for
 ``("attn", "dense")`` slots.  Other slot kinds (sliding-window, MLA,
 Mamba, MoE) raise ``NotImplementedError`` until their slice is ported
-(ROADMAP A11)."""
+(ROADMAP A11); the Mamba mixer itself is ``models/ssm.py``, and its slot
+comes with Mamba serving."""
 from __future__ import annotations
 
 from dataclasses import dataclass

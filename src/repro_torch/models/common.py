@@ -46,7 +46,7 @@ class ParamSpec:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]  # logical axis name per dim (None = replicated)
     dtype: str = "float32"
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | ssm_a | ssm_dt
     scale: float = 1.0  # stddev multiplier / fan-in handled by caller
 
     def __post_init__(self):
@@ -90,12 +90,16 @@ def materialize(specs, seed: int, device):
             return torch.zeros(spec.shape, dtype=dt, device=dev)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dt, device=dev)
-        if spec.init != "normal":
-            raise NotImplementedError(
-                f"{path_str(path)}: init {spec.init!r} belongs to the SSM "
-                "slice (ROADMAP A11)")
         g = torch.Generator(device=dev)
         g.manual_seed(int(seed) * 2**31 + zlib.crc32(path_str(path).encode()) % 2**31)
+        if spec.init == "ssm_a":  # A_log init: log of uniform [1, 16]
+            u = torch.rand(spec.shape, generator=g, device=dev) * 15.0 + 1.0
+            return torch.log(u).to(dt)
+        if spec.init == "ssm_dt":  # dt_bias: softplus^-1 of uniform [1e-3, 0.1]
+            u = torch.rand(spec.shape, generator=g, device=dev) * (0.1 - 1e-3) + 1e-3
+            return (u + torch.log(-torch.expm1(-u))).to(dt)
+        if spec.init != "normal":
+            raise ValueError(f"{path_str(path)}: unknown init {spec.init!r}")
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         std = spec.scale / np.sqrt(max(fan_in, 1))
         x = torch.randn(spec.shape, generator=g, dtype=torch.float32, device=dev)

@@ -12,10 +12,14 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as jax_decode
+from repro.kernels.decode_attention import \
+    paged_decode_attention as jax_paged_decode
 from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as ssd_k
 
 # tests/test_kernels.py's tolerances: fp32 sums in another order; bf16
 # inputs and output rounded at other places
@@ -118,9 +122,149 @@ def test_ops_wrappers_model_layout():
 
 def test_wrappers_reject_other_devices():
     q = torch.zeros((1, 4, 8, 64), device="meta")
+    pos = torch.zeros((1,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         fa_k.flash_attention(q, q[:, :2], q[:, :2], scale=0.125)
     with pytest.raises(ValueError):
-        dec_k.decode_attention(q[:, :, 0], q[:, :2], q[:, :2],
-                               torch.zeros((1,), dtype=torch.int32,
-                                           device="meta"), scale=0.125)
+        dec_k.decode_attention(q[:, :, 0], q[:, :2], q[:, :2], pos,
+                               scale=0.125)
+    pool = torch.zeros((3, 2, 4, 64), device="meta")
+    table = torch.zeros((1, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        dec_k.paged_decode_attention(q[:, :, 0], pool, pool, table, pos,
+                                     scale=0.125)
+    x = torch.zeros((1, 2, 32, 32), device="meta")
+    bc = torch.zeros((1, 32, 16), device="meta")
+    with pytest.raises(ValueError):
+        ssd_k.ssd_scan(x, x[..., 0], torch.zeros(2, device="meta"), bc, bc,
+                       chunk=16)
+
+
+def _shuffled_pools(rng, k, v, bs, extra=3):
+    """Scatter linear (B,KV,S,D) caches into shuffled block pools
+    (N,KV,bs,D) with a non-contiguous, non-monotonic table (B, S // bs);
+    the unused blocks hold other values, which a gather must skip (the
+    numpy form of tests/test_kernels.py::_paged_from_linear)."""
+    B, KV, S, D = k.shape
+    nb = S // bs
+    n_pool = B * nb + extra
+    table = rng.permutation(n_pool)[:B * nb].astype(np.int32).reshape(B, nb)
+    k_pool = rng.standard_normal((n_pool, KV, bs, D)).astype(np.float32)
+    v_pool = k_pool[::-1].copy()
+    for b in range(B):
+        for i in range(nb):
+            k_pool[table[b, i]] = k[b, :, i * bs:(i + 1) * bs]
+            v_pool[table[b, i]] = v[b, :, i * bs:(i + 1) * bs]
+    return k_pool, v_pool, table
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,S,H,KV,D,bs,window,cap",
+    [
+        (4, 128, 4, 2, 64, 32, 0, 0.0),    # GQA, ragged edges
+        (3, 128, 8, 2, 64, 16, 40, 0.0),   # window across block seams
+        (2, 96, 4, 4, 128, 8, 0, 30.0),    # small blocks, D=128, tanh cap
+    ],
+)
+def test_paged_plain_matches_pallas(B, S, H, KV, D, bs, window, cap, dtype):
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, KV, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, KV, S, D)).astype(np.float32)
+    k_pool, v_pool, table = _shuffled_pools(rng, k, v, bs)
+    # ragged positions: a block's first and last slot, the last slot, one
+    # random
+    pos = np.array([bs, bs - 1, S - 1, rng.integers(1, S)],
+                   np.int32)[:B]
+    jx, tx = [], []
+    for a in (q, k_pool, v_pool):
+        jx.append(jnp.asarray(a, getattr(jnp, dtype)))
+        tx.append(torch.from_numpy(a).to(getattr(torch, dtype)))
+    scale = 1.0 / np.sqrt(D)
+    before = dec_k.paged_decode_attention.launches
+    got = dec_k.paged_decode_attention(*tx, torch.from_numpy(table),
+                                       torch.from_numpy(pos), scale=scale,
+                                       window=window, cap=cap)
+    assert dec_k.paged_decode_attention.launches == before
+    assert got.dtype == tx[0].dtype and got.shape == tx[0].shape
+    pallas = jax_paged_decode(*jx, jnp.asarray(table), jnp.asarray(pos),
+                              scale=scale, window=window, cap=cap,
+                              interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(pallas), **TOL[dtype])
+    # the same numbers as the linear plain version on the gathered cache
+    lin = ref.decode_attention_ref(
+        tx[0], ops.gather_kv_blocks(tx[1].transpose(1, 2),
+                                    torch.from_numpy(table)).transpose(1, 2),
+        ops.gather_kv_blocks(tx[2].transpose(1, 2),
+                             torch.from_numpy(table)).transpose(1, 2),
+        torch.from_numpy(pos), scale=scale, window=window, cap=cap)
+    assert torch.equal(got, lin)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,H,L,P,N,chunk",
+    [
+        (2, 4, 128, 64, 32, 32),
+        (1, 8, 256, 32, 64, 64),
+        (2, 3, 64, 64, 128, 16),  # odd head count, many chunks
+    ],
+)
+def test_ssd_plain_matches_pallas(B, H, L, P, N, chunk, dtype):
+    """tests/test_kernels.py::test_ssd_scan_matches_oracle's grid and
+    tolerances, against the Pallas kernel itself."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((B, H, L, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, H, L)))).astype(np.float32)
+    a_neg = -np.exp(rng.standard_normal(H) * 0.5).astype(np.float32)
+    b = rng.standard_normal((B, L, N)).astype(np.float32)
+    c = rng.standard_normal((B, L, N)).astype(np.float32)
+    jx, tx = [], []
+    for arr, cast in ((x, True), (dt, True), (a_neg, False), (b, True),
+                      (c, True)):
+        jx.append(jnp.asarray(arr, getattr(jnp, dtype) if cast else jnp.float32))
+        tx.append(torch.from_numpy(arr).to(getattr(torch, dtype) if cast
+                                           else torch.float32))
+    before = ssd_k.ssd_scan.launches
+    y, h = ssd_k.ssd_scan(*tx, chunk=chunk)
+    assert ssd_k.ssd_scan.launches == before
+    assert y.dtype == tx[0].dtype and h.dtype == torch.float32
+    jy, jh = jax_ssd_scan(*jx, chunk=chunk, interpret=True)
+    # bf16: the same inputs, fp32 inside both; y rounded to bf16
+    tol = dict(rtol=5e-2, atol=1e-1) if dtype == "bfloat16" else \
+        dict(rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(_f32(y), _f32(jy), **tol)
+    np.testing.assert_allclose(_f32(h), _f32(jh), **tol)
+
+
+def test_paged_and_ssd_ops_wrappers_model_layout():
+    """Model layout in, the kernel-layout plain versions' numbers out."""
+    rng = np.random.default_rng(4)
+    B, S, H, KV, D, bs = 2, 64, 4, 2, 64, 16
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, D)).astype(np.float32))
+    k = rng.standard_normal((B, KV, S, D)).astype(np.float32)
+    kp, vp, table = _shuffled_pools(rng, k, k[:, :, ::-1].copy(), bs)
+    kp, vp, tbl = map(torch.from_numpy, (kp, vp, table))
+    pos = torch.tensor([S - 1, bs + 3], dtype=torch.int32)
+    launches = dec_k.paged_decode_attention.launches
+    out = ops.paged_decode_attention(q, kp.transpose(1, 2), vp.transpose(1, 2),
+                                     tbl, pos, scale=0.125)
+    want = ref.paged_decode_attention_ref(q[:, 0], kp, vp, tbl, pos,
+                                          scale=0.125)
+    torch.testing.assert_close(out[:, 0], want)
+    assert dec_k.paged_decode_attention.launches == launches
+    lin = ops.gather_kv_blocks(kp.transpose(1, 2), tbl)
+    assert lin.shape == (B, S, KV, D)
+    torch.testing.assert_close(lin.transpose(1, 2), torch.from_numpy(k))
+
+    L, Hs, P, N = 64, 3, 32, 16
+    x = torch.from_numpy(rng.standard_normal((1, L, Hs, P)).astype(np.float32))
+    dt = torch.rand(1, L, Hs, generator=torch.Generator().manual_seed(0))
+    a = -torch.ones(Hs)
+    b = torch.from_numpy(rng.standard_normal((1, L, N)).astype(np.float32))
+    y, h = ops.ssd_scan(x, dt, a, b, b.flip(1), chunk=16)
+    wy, wh = ref.ssd_scan_ref(x.transpose(1, 2), dt.transpose(1, 2), a, b,
+                              b.flip(1), chunk=16)
+    torch.testing.assert_close(y, wy.transpose(1, 2))
+    torch.testing.assert_close(h, wh)
