@@ -85,7 +85,8 @@ def main():
                          "device_us_per_launch":
                              _device_us(e) / max(e.count, 1)}
             for e in events if e.device_type == DeviceType.CUDA
-            for m in [re.search(r"(flash|decode|ssd)_kernel<[^>]*>", e.key)]
+            for m in [re.search(r"(flash|decode|decode_combine|ssd)_kernel<[^>]*>",
+                                e.key)]
             if m},
     }
     print(json.dumps(summary))

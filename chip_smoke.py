@@ -7,16 +7,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
 
 1. build  — compile every CUDA kernel from src/repro_torch/csrc with nvcc,
    all sources in parallel; print the build time and ptxas's register /
-   spill report.
+   spill report, and the count of HGMMA (wgmma) instructions in the flash
+   library's SASS (cuobjdump -sass), which must not be 0.
 2. kernels — run each kernel's wrapper on bf16 tensors on the card, at the
-   shapes the serving path gives it and at larger ones, and hold it to its
+   shapes the serving path gives it and at larger ones (flash at S 8-2048
+   and at D 128; decode at s_max 512 and S 4096), and hold it to its
    plain PyTorch version on the same inputs (|err| <= 3e-2 + 3e-2 * |want|,
    tests/test_kernels.py's bf16 tolerance).  Print per case the max error,
-   the kernel's time, the plain version's, the least time the card could
-   take (bound: bytes at 3.35 TB/s or FLOPs at 989 TFLOP/s bf16, whichever
-   is larger, counted for this run's inputs) and the time of one PyTorch
-   library call of the same function (scaled_dot_product_attention, timed
-   as a yardstick only; the port never calls it).
+   the kernel's time (CUDA events around 20 wrapper calls, so it holds the
+   wrapper's host cost) and its device time (torch.profiler: every kernel
+   a call launches, summed), the plain version's time, the least time the
+   card could take (bound: bytes at 3.35 TB/s or FLOPs at 989 TFLOP/s
+   bf16, whichever is larger, counted for this run's inputs) and the event
+   and device time of one PyTorch library call of the same function
+   (scaled_dot_product_attention: with is_causal, on its flash backend, for
+   flash without a window, and with an explicit mask where there is a
+   window or a decode row's pos; timed as a yardstick only, the port never
+   calls it).  A device time must hold every kernel of every timed call,
+   or the phase fails.
 3. serve  — Session.serve() of full-width granite-3-2b (40 layers, random
    weights from seed 0): 8 requests, n_new 32, s_max 512, max_batch 4, on
    the hand-written kernels.  The kernels' launch counters are zeroed just
@@ -28,9 +36,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
 5. paged and scan kernels — the paged decode kernel on the tuning shape
    and on PagedKVCache pools of full-width granite-3-2b (40 layers, KV 8,
    D 64, kv_block 16; ragged rows, non-contiguous tables from admissions
-   and releases, a strided layer view; s_max 512, and S = 4096 with window
-   and cap): bitwise equal to the linear decode kernel on the gathered
-   cache and within the bf16 tolerance of the plain version.  The SSD scan
+   and releases, a strided layer view; s_max 512, and S = 4096 without and
+   with window and cap): bitwise equal to the linear decode kernel on the
+   gathered cache and within the bf16 tolerance of the plain version.  The SSD scan
    kernel at the tuning shapes (chunks 32/64/128) and at mamba2-780m width
    (L 2048, H 48, P 64, N 128, chunk 256) against ref.ssd_scan_ref.  Times
    as in phase 2; the paged kernel's library yardstick is gather_kv_blocks
@@ -104,6 +112,63 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profile_kernels(torch, fn, calls: int) -> dict:
+    """{kernel name: (launches, device us)} of ``calls`` calls of ``fn``,
+    from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, float(getattr(e, "self_device_time_total",
+                                           getattr(e, "self_cuda_time_total",
+                                                   0.0))))
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def device_ms(torch, fn, kernels=None, iters: int = 20) -> float:
+    """Device time of one call: every kernel the call launches on the card,
+    summed from torch.profiler over ``iters`` calls after warm-up.  Unlike
+    the event time it holds none of the host's cost per call.  ``kernels``
+    is the number of kernels one call launches (None for a library call:
+    then it is what a profile of one call shows).  The profile of ``iters``
+    calls must hold each kernel of one call exactly ``iters`` times and
+    nothing else; a profile that lost records is taken again, up to three
+    times, and then the run fails: a device time that misses kernels is
+    never reported."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        one = profile_kernels(torch, fn, 1)
+        many = profile_kernels(torch, fn, iters)
+        n_one = sum(c for c, _ in one.values())
+        if (kernels is None or n_one == kernels) and {
+                k: c for k, (c, _) in many.items()} == {
+                k: iters * c for k, (c, _) in one.items()}:
+            us = sum(t for _, t in many.values())
+            if us <= 0.0:
+                fail("torch.profiler recorded no device time")
+            return us / iters / 1e3
+    fail(f"torch.profiler lost kernel records in three tries: one call "
+         f"{[(k[:40], c) for k, (c, _) in one.items()]} (want {kernels} "
+         f"kernels), {iters} calls {[(k[:40], c) for k, (c, _) in many.items()]}")
+
+
+def timings(torch, kernel, plain, library=None, kernels: int = 1) -> dict:
+    """The kernel's event and device time (it launches ``kernels`` kernels
+    per call), the plain version's event time and the library call's event
+    and device time (None without one)."""
+    return dict(
+        ms=time_ms(torch, kernel), device_ms=device_ms(torch, kernel, kernels),
+        plain_ms=time_ms(torch, plain, iters=5),
+        library_ms=None if library is None else time_ms(torch, library),
+        library_device_ms=None if library is None else device_ms(torch,
+                                                                  library))
+
+
 def bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / H100_HBM_BPS, flops / H100_BF16_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
@@ -130,25 +195,32 @@ def flash_case(torch, mods, *, S, window=0, cap=0.0, B=1, H=32, KV=8, D=64,
     if not bool((err <= TOL + TOL * want.float().abs()).all()):
         fail(f"flash_attention S={S} window={window} cap={cap}: max |err| "
              f"{err.max().item()} outside the bf16 tolerance")
-    ms = time_ms(torch, lambda: fa_k.flash_attention(
-        qt, kt, vt, scale=scale, window=window, cap=cap))
-    plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
-        qt, kt, vt, scale=scale, window=window, cap=cap), iters=5)
-    library_ms = None
-    if not cap:  # SDPA has no tanh cap
+    library = None
+    if not cap and not window:  # is_causal: SDPA's flash backend
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+    elif not cap:  # SDPA has no tanh cap; a window needs an explicit mask
         pos = torch.arange(S, device=dev)
-        mask = pos[None, :] <= pos[:, None]
-        if window:
-            mask &= (pos[:, None] - pos[None, :]) < window
-        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True))
+        mask = (pos[None, :] <= pos[:, None]) & (
+            (pos[:, None] - pos[None, :]) < window)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+    times = timings(
+        torch, lambda: fa_k.flash_attention(qt, kt, vt, scale=scale,
+                                            window=window, cap=cap),
+        lambda: ref.flash_attention_ref(qt, kt, vt, scale=scale,
+                                        window=window, cap=cap), library)
     qpos = torch.arange(S)
     lo = (qpos - window + 1).clamp(min=0) if window else torch.zeros_like(qpos)
     pairs = int((qpos - lo + 1).sum())  # (q, k) pairs the mask keeps, per head
     nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
     b_ms, b_by = bound(nbytes, 4 * D * pairs * H * B)
-    return dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    return dict(max_abs_err=err.max().item(), bound_ms=b_ms, bound_by=b_by,
+                **times)
 
 
 def decode_case(torch, mods, *, B, S, pos, window=0, cap=0.0, H=32, KV=8,
@@ -172,11 +244,7 @@ def decode_case(torch, mods, *, B, S, pos, window=0, cap=0.0, H=32, KV=8,
     if not bool((err <= TOL + TOL * want.float().abs()).all()):
         fail(f"decode_attention B={B} S={S}: max |err| {err.max().item()} "
              "outside the bf16 tolerance")
-    ms = time_ms(torch, lambda: dec_k.decode_attention(
-        q0, kt, vt, p, scale=scale, window=window, cap=cap))
-    plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(
-        q0, kt, vt, p, scale=scale, window=window, cap=cap), iters=5)
-    library_ms = None
+    library = None
     if not cap:
         kpos = torch.arange(S, device=dev)
         mask = kpos[None, :] <= p[:, None]
@@ -184,23 +252,40 @@ def decode_case(torch, mods, *, B, S, pos, window=0, cap=0.0, H=32, KV=8,
             mask &= (p[:, None] - kpos[None, :]) < window
         mask = mask[:, None, None, :]  # (B,1,1,S)
         qs = q.transpose(1, 2)  # (B,H,1,D)
-        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True))
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qs, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+    times = timings(
+        torch, lambda: dec_k.decode_attention(q0, kt, vt, p, scale=scale,
+                                              window=window, cap=cap),
+        lambda: ref.decode_attention_ref(q0, kt, vt, p, scale=scale,
+                                         window=window, cap=cap), library,
+        kernels=decode_kernels(dec_k, B, KV, S))
     keys = sum(pp + 1 - (max(0, pp - window + 1) if window else 0)
                for pp in pos)  # cache positions the rows read
     nbytes = 2 * (2 * B * H * D + 2 * keys * KV * D) + 4 * B
     b_ms, b_by = bound(nbytes, 4 * D * H * keys)
-    return dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    return dict(max_abs_err=err.max().item(), bound_ms=b_ms, bound_by=b_by,
+                **times)
+
+
+def decode_kernels(dec_k, B: int, KV: int, S: int) -> int:
+    """Kernels one decode call launches: the split pass, and the combine
+    when there is more than one split."""
+    return 2 if dec_k.decode_splits(B, KV, S)[0] > 1 else 1
 
 
 def print_cases(cases) -> None:
+    def ms(x):
+        return "null" if x is None else f"{x:.4f}"
     for name, _, r in cases:
-        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3e}  "
-              f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+              f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f})  "
+              f"plain {r['plain_ms']:.4f} ms  "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
-              f"library {lib} ms", flush=True)
+              f"library {ms(r['library_ms'])} ms (device "
+              f"{ms(r['library_device_ms'])})", flush=True)
 
 
 def reference_check(torch, M, RunConfig, materialize, cfg, dev="cuda",
@@ -283,11 +368,7 @@ def paged_case(torch, mods, name, q, kp, vp, table, pos, *, window=0,
     ok, err = within(got, want)
     if not ok:
         fail(f"{name}: max |err| {err} outside the bf16 tolerance")
-    ms = time_ms(torch, lambda: dec_k.paged_decode_attention(
-        q, kp, vp, kt, pos, scale=scale, window=window, cap=cap))
-    plain_ms = time_ms(torch, lambda: ref.paged_decode_attention_ref(
-        q, kp, vp, table, pos, scale=scale, window=window, cap=cap), iters=5)
-    library_ms = None
+    library = None
     if not cap:  # SDPA has no tanh cap
         kpos = torch.arange(S, device=q.device)
         mask = kpos[None, :] <= pos[:, None].long()
@@ -301,14 +382,18 @@ def paged_case(torch, mods, name, q, kp, vp, table, pos, *, window=0,
             return F.scaled_dot_product_attention(
                 q[:, :, None], k_lin.transpose(1, 2), v_lin.transpose(1, 2),
                 attn_mask=mask, scale=scale, enable_gqa=True)
-        library_ms = time_ms(torch, library)
+    times = timings(
+        torch, lambda: dec_k.paged_decode_attention(
+            q, kp, vp, kt, pos, scale=scale, window=window, cap=cap),
+        lambda: ref.paged_decode_attention_ref(
+            q, kp, vp, table, pos, scale=scale, window=window, cap=cap),
+        library, kernels=decode_kernels(dec_k, B, KV, S))
     keys = sum(p + 1 - (max(0, p - window + 1) if window else 0)
                for p in pos.tolist())  # cache positions the rows read
     blocks = sum(p // bs + 1 for p in pos.tolist())  # table entries read
     nbytes = 2 * (2 * B * H * D + 2 * keys * KV * D) + 4 * (B + blocks)
     b_ms, b_by = bound(nbytes, 4 * D * H * keys)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms)
+    return dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
 
 
 def granite_pools(torch, PagedKVCache, cfg, *, s_max, lengths, layer=17,
@@ -368,9 +453,8 @@ def ssd_case(torch, mods, name, *, B, L, H, P, N, chunk, seed=7):
     ok_h, err_h = within(h, wh, 1e-3, 1e-3)  # fp32 both, sums reordered
     if not (ok_y and ok_h):
         fail(f"{name}: max |err| y {err}, h {err_h} outside the tolerance")
-    ms = time_ms(torch, lambda: ssd_k.ssd_scan(*args, chunk=chunk))
-    plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(*args, chunk=chunk),
-                       iters=5)
+    times = timings(torch, lambda: ssd_k.ssd_scan(*args, chunk=chunk),
+                    lambda: ref.ssd_scan_ref(*args, chunk=chunk))
     Q = min(chunk, L)
     tri = Q * (Q + 1) // 2  # (i, j) pairs of a chunk the causal mask keeps
     nc = L // Q
@@ -380,8 +464,7 @@ def ssd_case(torch, mods, name, *, B, L, H, P, N, chunk, seed=7):
     nbytes = (2 * 2 * B * L * H * P + 2 * B * L * H + 2 * 2 * B * L * N
               + 4 * H + 4 * B * H * N * P)
     b_ms, b_by = bound(nbytes, flops)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+    return dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
 
 
 def mamba_layer_check(torch, ssm, materialize, get_config, ssd_k):
@@ -511,6 +594,13 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    hgmma = sum("HGMMA" in line
+                for line in _build.sass("flash_attention").splitlines())
+    print(f"[build] flash_attention: {hgmma} HGMMA (wgmma) instructions in "
+          "the SASS (cuobjdump -sass)", flush=True)
+    if hgmma == 0:
+        fail("the flash kernel's SASS holds no HGMMA: it does not run on "
+             "the tensor cores")
 
     # 2. kernels ---------------------------------------------------------------
     mods = {"fa_k": fa_k, "dec_k": dec_k, "ssd_k": ssd_k, "ref": ref,
@@ -519,8 +609,12 @@ def main() -> None:
     for S in (8, 16, 32, 64):  # the serving path's prompt buckets
         cases.append((f"flash_attention[S={S}]", "flash_attention",
                       flash_case(torch, mods, S=S)))
+    cases.append(("flash_attention[S=512]", "flash_attention",
+                  flash_case(torch, mods, S=512)))
     cases.append(("flash_attention[S=2048]", "flash_attention",
                   flash_case(torch, mods, S=2048)))
+    cases.append(("flash_attention[S=2048,D=128,H=16,KV=4]", "flash_attention",
+                  flash_case(torch, mods, S=2048, D=128, H=16, KV=4)))
     cases.append(("flash_attention[S=2048,window=512,cap=50]",
                   "flash_attention",
                   flash_case(torch, mods, S=2048, window=512, cap=50.0)))
@@ -584,6 +678,7 @@ def main() -> None:
     g = torch.Generator(device="cuda").manual_seed(6)
     for label, s_max, lengths, window, cap in [
             ("B=4,s_max=512", 512, [100, 300, 50, 512], 0, 0.0),
+            ("B=4,S=4096", 4096, [4096, 1000, 2048, 17], 0, 0.0),
             ("B=4,S=4096,window=1024,cap=30", 4096, [4096, 1000, 2048, 17],
              1024, 30.0)]:
         kp, vp, table, poisoned, pos = granite_pools(

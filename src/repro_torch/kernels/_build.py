@@ -83,6 +83,15 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
             for name in names}
 
 
+def sass(name: str) -> str:
+    """The SASS of library ``name`` (built first if need be), as
+    ``cuobjdump -sass`` from the toolkit beside ``nvcc`` prints it."""
+    build([name])
+    tool = Path(nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for kernel ``name``, built on first use."""
     lib = _LIBS.get(name)

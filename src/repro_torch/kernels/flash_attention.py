@@ -5,16 +5,18 @@ Replaces ``repro/kernels/flash_attention.py::flash_attention`` (the Pallas
 TPU kernel).  Same function and layout: q (B,H,Sq,D), k/v (B,KV,Sk,D) ->
 (B,H,Sq,D), causal from position 0, optional sliding window and tanh cap.
 
-Bound on the H100: the FLOPs for long prompts (~17 GFLOP at Sq = 2048,
-H = 32, D = 64: ~17 us at 989 TFLOP/s bf16); the launch for the serving
-path's prompts of <= 64 tokens.  The kernel is a simple fp32 CUDA-core
-design (one block per 64-row q tile and head, K/V tiles of 64 staged in
-shared memory, tiles past the causal diagonal or before the window never
-loaded); see the source for what a faster design changes.
+Bound on the H100: the FLOPs for long prompts (17.2 GFLOP at Sq = 2048,
+H = 32, D = 64: 17.4 us at 989 TFLOP/s bf16); the launch for the serving
+path's prompts of <= 64 tokens.  The kernel runs on the tensor cores
+(wgmma, bf16 operands, fp32 softmax state): one block of two warpgroups per
+128 q rows and head, 64-key K/V tiles staged by cp.async in a two-stage
+ring of 128-byte-swizzled bf16 shared memory, tiles past the causal
+diagonal or before the window never loaded; see the source for the
+layouts.
 
 CPU tensors take the plain version (``ref.flash_attention_ref``); CUDA
 tensors launch the kernel or raise.  ``flash_attention.launches`` counts
-kernel launches.
+wrapper calls that launch.
 """
 from __future__ import annotations
 
@@ -30,9 +32,14 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                 ctypes.c_void_p])
 
 
+_FNS: dict = {}
+
+
 def _kernel():
-    fn = _build.library("flash_attention").flash_attention_bf16
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = _FNS.get("flash")
+    if fn is None:
+        fn = _FNS["flash"] = _build.library("flash_attention").flash_attention_bf16
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     return fn
 
 

@@ -62,6 +62,45 @@ def decode_attention_ref(q, k, v, pos, *, scale, window=0, cap=0.0):
     return out.reshape(B, H, D).to(q.dtype)
 
 
+def decode_attention_split_ref(q, k, v, pos, *, scale, splits, tiles,
+                               window=0, cap=0.0, tile=64):
+    """:func:`decode_attention_ref` computed as the split-K kernel computes
+    it: split s takes the keys of the ``tile``-key tiles [s * tiles,
+    (s + 1) * tiles) and keeps an unnormalised partial (acc_s, m_s, l_s);
+    a split with no key of its row keeps (0, NEG_INF, 0).  The partials are
+    combined as M = max_s m_s, out = sum_s e^(m_s - M) acc_s /
+    max(sum_s e^(m_s - M) l_s, 1e-30).  For the tests only: the kernel
+    wrappers never call it."""
+    B, H, D = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = q.float().reshape(B, KV, G, 1, D)
+    kf = k.float()[:, :, None]  # (B,KV,1,S,D)
+    vf = v.float()[:, :, None]
+    s = softcap(torch.matmul(qf, kf.transpose(-1, -2)) * scale, cap)  # (B,KV,G,1,S)
+    p = pos.to(torch.int64).view(B, 1, 1, 1, 1)
+    kpos = torch.arange(S, device=q.device)
+    mask = (kpos <= p).expand(s.shape)
+    if window:
+        mask = mask & ((p - kpos) < window)
+    s = s.masked_fill(~mask, NEG_INF)
+    accs, ms, ls = [], [], []
+    for i in range(splits):
+        lo, hi = i * tiles * tile, min(S, (i + 1) * tiles * tile)
+        si, vi = s[..., lo:hi], vf[..., lo:hi, :]
+        m = si.amax(dim=-1, keepdim=True)
+        e = torch.exp(si - m)
+        seen = mask[..., lo:hi].any(dim=-1, keepdim=True)
+        accs.append(torch.where(seen, torch.matmul(e, vi), 0.0))
+        ms.append(torch.where(seen, m, NEG_INF))
+        ls.append(torch.where(seen, e.sum(dim=-1, keepdim=True), 0.0))
+    m_all = torch.stack(ms)
+    w = torch.exp(m_all - m_all.amax(dim=0))
+    out = (w * torch.stack(accs)).sum(dim=0) / torch.clamp_min(
+        (w * torch.stack(ls)).sum(dim=0), 1e-30)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
 def paged_decode_attention_ref(q, k_pool, v_pool, table, pos, *, scale,
                                window=0, cap=0.0):
     """q (B,H,D), pools (N,KV,bs,D), table (B,nb), pos (B,) -> (B,H,D):

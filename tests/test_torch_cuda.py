@@ -26,8 +26,8 @@ def cuda():
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions(cuda):
     torch.manual_seed(0)
-    # query heads per kv head G = 4, 2, 8, 16: every rows-per-warp
-    # instantiation of the decode kernel; D = 64 and 128
+    # query heads per kv head G = 4, 2, 8, 16 (16: the most the decode
+    # kernel takes); D = 64 and 128
     for (B, S, H, KV, D, window, cap) in [(1, 200, 8, 2, 64, 0, 0.0),
                                           (2, 130, 4, 2, 128, 48, 30.0),
                                           (3, 300, 32, 4, 64, 0, 0.0),
@@ -50,6 +50,69 @@ def test_cuda_kernels_match_plain_versions(cuda):
                                         window=window, cap=cap)
         torch.testing.assert_close(got[:, 0].float(), want.float(),
                                    **TOL)
+
+
+# (H, KV) for G = H / KV = 1, 4, 8, 16
+_GROUPS = {1: (4, 4), 4: (8, 2), 8: (16, 2), 16: (16, 1)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Sq", [1, 8, 47, 64, 65, 200, 2048])
+def test_flash_kernel_edges(cuda, Sq, D):
+    """The wgmma flash kernel at every q length the path can give it (the
+    serving buckets, lengths that are not a multiple of the 64-row
+    warpgroup or the 128-row block, one long prompt), every G, D 64 and
+    128; plain, and with a window that crosses tile edges plus the cap."""
+    from repro_torch.kernels import flash_attention as fa_k
+    gen = torch.Generator(device=cuda).manual_seed(Sq + D)
+    for G, (H, KV) in _GROUPS.items():
+        for window, cap in [(0, 0.0), (70, 30.0)]:
+            B = 2 if Sq <= 200 else 1
+            q = torch.randn(B, Sq, H, D, device=cuda, generator=gen).to(torch.bfloat16)
+            k = torch.randn(B, Sq, KV, D, device=cuda, generator=gen).to(torch.bfloat16)
+            v = torch.randn(B, Sq, KV, D, device=cuda, generator=gen).to(torch.bfloat16)
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            scale = 1.0 / np.sqrt(D)
+            got = fa_k.flash_attention(qt, kt, vt, scale=scale, window=window,
+                                       cap=cap)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(qt, kt, vt, scale=scale,
+                                           window=window, cap=cap)
+            torch.testing.assert_close(got.float(), want.float(), **TOL,
+                                       msg=lambda m: f"G={G} window={window}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (500, 0.0), (500, 30.0)])
+def test_decode_kernel_split_edges(cuda, D, window, cap):
+    """Split-K decode with pos at the split and tile edges (0, 63, 64,
+    T * 64 - 1, T * 64, S - 1) on a cache whose length is not a multiple of
+    64, and a window whose start falls inside a split; every split count
+    decode_splits gives here is > 1."""
+    from repro_torch.kernels import decode_attention as dec_k
+    B, S, H, KV = 6, 4000, 32, 8
+    splits, per = dec_k.decode_splits(B, KV, S)
+    assert splits > 1 and per > 1
+    gen = torch.Generator(device=cuda).manual_seed(D + window)
+    q = torch.randn(B, H, D, device=cuda, generator=gen).to(torch.bfloat16)
+    k = torch.randn(B, S, KV, D, device=cuda, generator=gen).to(torch.bfloat16)
+    v = torch.randn(B, S, KV, D, device=cuda, generator=gen).to(torch.bfloat16)
+    pos = torch.tensor([0, 63, 64, per * 64 - 1, per * 64, S - 1],
+                       device=cuda, dtype=torch.int32)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    scale = 1.0 / np.sqrt(D)
+    got = dec_k.decode_attention(q, kt, vt, pos, scale=scale, window=window,
+                                 cap=cap)
+    torch.cuda.synchronize()
+    want = ref.decode_attention_ref(q, kt, vt, pos, scale=scale,
+                                    window=window, cap=cap)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    split = ref.decode_attention_split_ref(q, kt, vt, pos, scale=scale,
+                                           splits=splits, tiles=per,
+                                           window=window, cap=cap)
+    torch.testing.assert_close(got.float(), split.float(), **TOL)
 
 
 def _paged_from_linear(k, v, bs, gen):
@@ -78,10 +141,12 @@ def test_paged_kernel_bitwise_equals_linear_kernel(cuda, bs):
     tolerance of the plain version."""
     from repro_torch.kernels import decode_attention as dec_k
     gen = torch.Generator(device=cuda).manual_seed(bs)
-    # G = H / KV = 1, 4, 8; D = 64 and 128; windows and caps
+    # G = H / KV = 1, 4, 8; D = 64 and 128; windows and caps; a long cache
+    # split into several kv ranges (split-K) with a combine
     for (B, S, H, KV, D, window, cap) in [(3, 256, 4, 4, 64, 0, 0.0),
                                           (4, 320, 32, 8, 64, 0, 0.0),
-                                          (2, 192, 16, 2, 128, 70, 30.0)]:
+                                          (2, 192, 16, 2, 128, 70, 30.0),
+                                          (4, 4096, 32, 8, 64, 0, 0.0)]:
         q = torch.randn(B, H, D, device=cuda, generator=gen).to(torch.bfloat16)
         k = torch.randn(B, KV, S, D, device=cuda, generator=gen).to(torch.bfloat16)
         v = torch.randn(B, KV, S, D, device=cuda, generator=gen).to(torch.bfloat16)

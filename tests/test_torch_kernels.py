@@ -268,3 +268,74 @@ def test_paged_and_ssd_ops_wrappers_model_layout():
                               b.flip(1), chunk=16)
     torch.testing.assert_close(y, wy.transpose(1, 2))
     torch.testing.assert_close(h, wh)
+
+
+@pytest.mark.parametrize("B,KV", [(1, 1), (1, 2), (4, 8), (8, 8), (64, 8),
+                                  (3, 4)])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 128, 200, 512, 1000, 4096,
+                               32768])
+def test_decode_splits_cover_every_tile_once(B, KV, S):
+    """The split-K kernel's split of the kv walk: every 64-key tile of the
+    cache in exactly one split, no split without a tile, one split for a
+    single tile, and no more blocks than needed to reach the target."""
+    splits, per = dec_k.decode_splits(B, KV, S)
+    tiles = -(-S // 64)
+    covered = [t for s in range(splits)
+               for t in range(s * per, min((s + 1) * per, tiles))]
+    assert covered == list(range(tiles))
+    assert all(s * per < tiles for s in range(splits))  # no empty split
+    assert 1 <= splits <= tiles
+    if tiles == 1:
+        assert (splits, per) == (1, 1)
+    if splits > 1:  # splits are only added while short of the target
+        assert B * KV * (splits - 1) < dec_k.TARGET_BLOCKS
+
+
+def test_decode_splits_fill_the_card():
+    """At B = 4, KV = 8, S = 4096 (the long-cache case of chip_smoke.py)
+    the split reaches about four blocks per SM of the H100's 132, with
+    8-16 splits; a cache of <= 64 positions is one split."""
+    splits, per = dec_k.decode_splits(4, 8, 4096)
+    assert 8 <= splits <= 16 and splits * per >= 64
+    assert 4 * 8 * splits >= 0.95 * dec_k.TARGET_BLOCKS
+    for S in (1, 17, 64):
+        assert dec_k.decode_splits(4, 8, S) == (1, 1)
+
+
+@pytest.mark.parametrize(
+    "B,S,H,KV,D,window,cap,splits",
+    [
+        (4, 300, 8, 2, 64, 0, 0.0, None),    # decode_splits' choice
+        (4, 1000, 8, 8, 64, 0, 0.0, 16),     # empty splits for short rows
+        (3, 700, 4, 2, 128, 200, 0.0, 4),    # window starts inside a split
+        (2, 520, 8, 2, 64, 70, 30.0, 9),     # window + cap, last split short
+        (3, 64, 4, 4, 64, 0, 0.0, 1),        # one split: no combine
+    ],
+)
+def test_decode_split_ref_matches_pallas_and_ref(B, S, H, KV, D, window, cap,
+                                                 splits):
+    """The plain split-and-combine (the split-K kernel's arithmetic) against
+    the one-pass plain version and the Pallas decode kernel (interpret
+    mode), in fp32.  Tolerance 2e-4: the same fp32 scores, summed per split
+    and rescaled by e^(m_s - M) before the combine, so only the order of
+    the sums differs (tests/test_kernels.py's fp32 tolerance)."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        5, [(B, H, D), (B, KV, S, D), (B, KV, S, D)], "float32")
+    if splits is None:
+        splits, per = dec_k.decode_splits(B, KV, S)
+    else:
+        per = -(-(-(-S // 64)) // splits)
+        splits = -(-(-(-S // 64)) // per)
+    # positions: the first slot, a tile edge, the last slot, a split edge
+    pos = np.array([0, 64, S - 1, per * 64 - 1][:B], np.int32)
+    pos = np.minimum(pos, S - 1)
+    scale = 1.0 / np.sqrt(D)
+    got = ref.decode_attention_split_ref(
+        tq, tk, tv, torch.from_numpy(pos), scale=scale, splits=splits,
+        tiles=per, window=window, cap=cap)
+    want = ref.decode_attention_ref(tq, tk, tv, torch.from_numpy(pos),
+                                    scale=scale, window=window, cap=cap)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    pallas = jax_decode(jq, jk, jv, jnp.asarray(pos), scale=scale,
+                        window=window, cap=cap, kv_block=64, interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(pallas), rtol=2e-4, atol=2e-4)
