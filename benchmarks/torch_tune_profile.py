@@ -85,7 +85,8 @@ def main():
                          "device_us_per_launch":
                              _device_us(e) / max(e.count, 1)}
             for e in events if e.device_type == DeviceType.CUDA
-            for m in [re.search(r"(flash|decode|decode_combine|ssd)_kernel<[^>]*>",
+            for m in [re.search(r"(flash|decode|decode_combine)_kernel<[^>]*>|"
+                                r"(chunk|output)_pass<[^>]*>|state_pass",
                                 e.key)]
             if m},
     }

@@ -1,4 +1,4 @@
-"""Host time per call of the attention kernels' wrappers, on the card.
+"""Host time per call of the kernels' wrappers, on the card.
 
     python benchmarks/torch_wrapper_host.py [--src DIR] [--calls 500]
         [--rounds 9]
@@ -15,7 +15,10 @@ last call's kernels; where that is much larger than the host time, the
 card, not the host, set the pace, and the host time is not the wrapper's
 cost alone.  Cases: the decode wrapper at the serving shape (B 4, H 32,
 KV 8, D 64, s_max 512, every row in its first 64-key tile) and at S 4096,
-and the flash wrapper at a serving prompt bucket (S 32).  Prints one line
+the flash wrapper at a serving prompt bucket (S 32), and the SSD scan
+wrapper at a tuning shape (B 1, H 2, L 128, P 32, N 16, chunk 32) and at
+mamba2-780m width (L 2048, H 48, P 64, N 128, chunk 256), on the
+model-layout views ssm_forward passes.  Prints one line
 per case, then one JSON line.  Needs a CUDA device.
 """
 from __future__ import annotations
@@ -40,6 +43,7 @@ def main():
 
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ssd_scan as ssd_k
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_wrapper_host: needs a CUDA device")
@@ -61,6 +65,13 @@ def main():
     qt, kt, vt = (randn(1, 32, h, 64).transpose(1, 2) for h in (32, 8, 8))
     cases["flash_attention[S=32]"] = (
         lambda: fa_k.flash_attention(qt, kt, vt, scale=0.125))
+    for B, L, H, P, N, chunk in ((1, 128, 2, 32, 16, 32),
+                                 (1, 2048, 48, 64, 128, 256)):
+        x, dt = randn(B, L, H, P), randn(B, L, H).abs()
+        scan = (x.transpose(1, 2), dt.transpose(1, 2),
+                -torch.ones(H, device="cuda"), randn(B, L, N), randn(B, L, N))
+        cases[f"ssd_scan[B={B},L={L},H={H},P={P},N={N},chunk={chunk}]"] = (
+            lambda scan=scan, chunk=chunk: ssd_k.ssd_scan(*scan, chunk=chunk))
 
     out = {}
     for name, fn in cases.items():

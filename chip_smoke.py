@@ -8,7 +8,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
 1. build  — compile every CUDA kernel from src/repro_torch/csrc with nvcc,
    all sources in parallel; print the build time and ptxas's register /
    spill report, and the count of HGMMA (wgmma) instructions in the flash
-   library's SASS (cuobjdump -sass), which must not be 0.
+   library's SASS and of HMMA/HGMMA (tensor-core) instructions in the scan
+   library's (cuobjdump -sass); neither may be 0.
 2. kernels — run each kernel's wrapper on bf16 tensors on the card, at the
    shapes the serving path gives it and at larger ones (flash at S 8-2048
    and at D 128; decode at s_max 512 and S 4096), and hold it to its
@@ -39,14 +40,21 @@ Phases, each fatal on failure (exit code != 0, no result line):
    and releases, a strided layer view; s_max 512, and S = 4096 without and
    with window and cap): bitwise equal to the linear decode kernel on the
    gathered cache and within the bf16 tolerance of the plain version.  The SSD scan
-   kernel at the tuning shapes (chunks 32/64/128) and at mamba2-780m width
-   (L 2048, H 48, P 64, N 128, chunk 256) against ref.ssd_scan_ref.  Times
-   as in phase 2; the paged kernel's library yardstick is gather_kv_blocks
-   followed by SDPA, timed together; the scan has no single PyTorch call.
+   kernels at the tuning shapes (chunks 32/64/128) and at mamba2-780m width
+   (H 48, P 64, N 128: L 2048 at chunk 256, one chunk of L = 192 < 256, and
+   a ragged chunk of 20 at L 2000) against ref.ssd_scan_ref (y at the bf16
+   tolerance, the fp32 state at 1e-3).  Times as in phase 2, the scan's
+   device time holding every pass it launches (ssd_kernels); at L 2048 also
+   each pass's device time and models.ssm.ssd_chunked in bf16 on the same
+   inputs (what impl="auto" runs), whose device time the kernels must beat.
+   The paged kernel's library yardstick is gather_kv_blocks followed by
+   SDPA, timed together; the scan has no single PyTorch call (null).
 6. mamba layer — one full-width mamba2-780m ssm_forward layer (random
    weights from seed 0, x (1, 2048, 1536) bf16) with impl="kernel" against
    impl="auto" on the same values in fp32, at tests/test_kernels.py's bf16
-   SSD tolerance; the scan kernel's launch counter must move by one.
+   SSD tolerance; the scan kernel's launch counter must move by one.  Then
+   the layer's event and device time in bf16 with impl="kernel" and with
+   impl="auto".
 7. tune — the kernel-choice stage of the paper's procedure:
    bench_kernels(device="cuda") at the JAX package's defaults (seq 128,
    repeats 2, scan chunks 32/64/128), with all four launch counters zeroed
@@ -62,6 +70,7 @@ Then it prints the card's name and power limit (nvidia-smi), a
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -434,9 +443,15 @@ def granite_pools(torch, PagedKVCache, cfg, *, s_max, lengths, layer=17,
     return kp, vp, table, poisoned, pos
 
 
-def ssd_case(torch, mods, name, *, B, L, H, P, N, chunk, seed=7):
-    """The scan kernel on model-layout views (x (B,L,H,P) and dt (B,L,H)
-    transposed, as ssm_forward passes them) against ref.ssd_scan_ref."""
+def ssd_case(torch, mods, name, *, B, L, H, P, N, chunk, seed=7,
+             yardstick=False):
+    """The scan kernels on model-layout views (x (B,L,H,P) and dt (B,L,H)
+    transposed, as ssm_forward passes them) against ref.ssd_scan_ref.  The
+    device time must hold every pass of every timed call.  With
+    ``yardstick``: each pass's device time, and models.ssm.ssd_chunked in
+    bf16 on the same inputs in model layout (what impl="auto" runs; no
+    single PyTorch call computes the scan, so the library column stays
+    null), whose device time the kernels must beat."""
     ssd_k, ref = mods["ssd_k"], mods["ref"]
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(B, L, H, P, generator=g, device="cuda").to(torch.bfloat16)
@@ -453,8 +468,10 @@ def ssd_case(torch, mods, name, *, B, L, H, P, N, chunk, seed=7):
     ok_h, err_h = within(h, wh, 1e-3, 1e-3)  # fp32 both, sums reordered
     if not (ok_y and ok_h):
         fail(f"{name}: max |err| y {err}, h {err_h} outside the tolerance")
+    kernels = ssd_k.ssd_kernels(B, H, L, chunk)
     times = timings(torch, lambda: ssd_k.ssd_scan(*args, chunk=chunk),
-                    lambda: ref.ssd_scan_ref(*args, chunk=chunk))
+                    lambda: ref.ssd_scan_ref(*args, chunk=chunk),
+                    kernels=kernels)
     Q = min(chunk, L)
     tri = Q * (Q + 1) // 2  # (i, j) pairs of a chunk the causal mask keeps
     nc = L // Q
@@ -464,7 +481,33 @@ def ssd_case(torch, mods, name, *, B, L, H, P, N, chunk, seed=7):
     nbytes = (2 * 2 * B * L * H * P + 2 * B * L * H + 2 * 2 * B * L * N
               + 4 * H + 4 * B * H * N * P)
     b_ms, b_by = bound(nbytes, flops)
-    return dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
+    out = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
+    if not yardstick:
+        return out
+    passes = profile_kernels(torch, lambda: ssd_k.ssd_scan(*args, chunk=chunk),
+                             20)
+    if len(passes) != kernels or any(n != 20 for n, _ in passes.values()):
+        fail(f"{name}: the profile of 20 calls shows {passes}, not "
+             f"{kernels} passes 20 times each")
+    out["pass_device_ms"] = {
+        re.search(r"(chunk|state|output)_pass", k).group(0): t / 20 / 1e3
+        for k, (_, t) in passes.items()}
+    ssm, a16 = mods["ssm"], a.to(torch.bfloat16)
+
+    def chunked():
+        return ssm.ssd_chunked(x, dt, a16, b, c, chunk)
+
+    out["ssd_chunked_ms"] = time_ms(torch, chunked)
+    out["ssd_chunked_device_ms"] = device_ms(torch, chunked)
+    print(f"[kernel] {name}: passes on the device "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                      out["pass_device_ms"].items())
+          + f"; models.ssm.ssd_chunked bf16 {out['ssd_chunked_ms']:.4f} ms "
+          f"(device {out['ssd_chunked_device_ms']:.4f})", flush=True)
+    if out["device_ms"] >= out["ssd_chunked_device_ms"]:
+        fail(f"{name}: the kernels take {out['device_ms']} ms on the device, "
+             f"ssd_chunked {out['ssd_chunked_device_ms']} ms")
+    return out
 
 
 def mamba_layer_check(torch, ssm, materialize, get_config, ssd_k):
@@ -503,6 +546,15 @@ def mamba_layer_check(torch, ssm, materialize, get_config, ssd_k):
     if not (ok and ok_h):
         fail(f"mamba layer: kernel path differs from the plain path by "
              f"{err} (out), {err_h} (state)")
+    layer = {impl: (lambda impl=impl: ssm.ssm_forward(p, x, None, cfg,
+                                                      impl=impl))
+             for impl in ("kernel", "auto")}
+    t = {impl: (time_ms(torch, fn, iters=10), device_ms(torch, fn, iters=10))
+         for impl, fn in layer.items()}
+    print(f"[mamba] mamba2-780m layer in bf16, impl=\"kernel\" "
+          f"{t['kernel'][0]:.4f} ms (device {t['kernel'][1]:.4f}), "
+          f"impl=\"auto\" (ssd_chunked) {t['auto'][0]:.4f} ms (device "
+          f"{t['auto'][1]:.4f})", flush=True)
 
 
 def tune_phase(torch, autotune, ops, wrappers):
@@ -601,10 +653,17 @@ def main() -> None:
     if hgmma == 0:
         fail("the flash kernel's SASS holds no HGMMA: it does not run on "
              "the tensor cores")
+    hmma = sum("HMMA" in line or "HGMMA" in line
+               for line in _build.sass("ssd_scan").splitlines())
+    print(f"[build] ssd_scan: {hmma} HMMA/HGMMA (tensor-core) instructions "
+          "in the SASS (cuobjdump -sass)", flush=True)
+    if hmma == 0:
+        fail("the scan kernels' SASS holds no HMMA or HGMMA: they do not "
+             "run on the tensor cores")
 
     # 2. kernels ---------------------------------------------------------------
     mods = {"fa_k": fa_k, "dec_k": dec_k, "ssd_k": ssd_k, "ref": ref,
-            "ops": ops}
+            "ops": ops, "ssm": ssm}
     cases = []
     for S in (8, 16, 32, 64):  # the serving path's prompt buckets
         cases.append((f"flash_attention[S={S}]", "flash_attention",
@@ -699,12 +758,20 @@ def main() -> None:
     name = "ssd_scan[mamba2-780m: B=1,L=2048,H=48,P=64,N=128,chunk=256]"
     new_cases.append((name, "ssd_scan",
                       ssd_case(torch, mods, name, B=1, L=2048, H=48, P=64,
-                               N=128, chunk=256)))
+                               N=128, chunk=256, yardstick=True)))
+    for label, L, chunk in (("one chunk, Q = L = 192 < chunk", 192, 256),
+                            ("ragged Q = 20", 2000, 20)):
+        name = (f"ssd_scan[mamba2-780m width, {label}: B=1,L={L},H=48,P=64,"
+                f"N=128,chunk={chunk}]")
+        new_cases.append((name, "ssd_scan",
+                          ssd_case(torch, mods, name, B=1, L=L, H=48, P=64,
+                                   N=128, chunk=chunk)))
     print_cases(new_cases)
     print("[kernel] paged: bitwise equal to the linear kernel on the gathered "
           "cache in every case; library = gather_kv_blocks + SDPA, timed "
           "together. ssd_scan: library null, no single PyTorch call computes "
-          "the SSD scan", flush=True)
+          "the SSD scan; its yardstick is models.ssm.ssd_chunked in bf16 "
+          "(ssd_chunked_ms)", flush=True)
     cases += new_cases
 
     # 6. mamba layer -----------------------------------------------------------

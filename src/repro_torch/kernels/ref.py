@@ -152,3 +152,67 @@ def ssd_scan_ref(x, dt, a_neg, b, c, *, chunk=256):
         h = h * torch.exp(cl[..., -1])[..., None, None] + torch.matmul(
             bc.transpose(-1, -2), xc * decay_end[..., None])
     return torch.cat(ys, dim=2).to(x.dtype), h
+
+
+# The SSD scan as the CUDA kernel decomposes it (csrc/ssd_scan.cu): three
+# passes over the same function as ssd_scan_ref, in fp32.  For the tests
+# only: the kernel wrappers never call them.
+
+
+def ssd_chunk_states_ref(x, dt, a_neg, b, *, chunk):
+    """Pass 1: each chunk's own state S_c = Bᵀ (s ∘ x), s_j = exp(cl_last -
+    cl_j) dt_j, and its cl_last.  x (B,H,L,P), dt (B,H,L), b (B,L,N) ->
+    states (B,nc,H,N,P), cl_last (B,nc,H), fp32."""
+    B, H, L, P = x.shape
+    Q = min(chunk, L)
+    nc = L // Q
+    xf = x.float().reshape(B, H, nc, Q, P)
+    dtf = dt.float().reshape(B, H, nc, Q)
+    bf = b.float().reshape(B, nc, Q, -1)
+    cl = torch.cumsum(dtf * a_neg.float()[None, :, None, None], dim=-1)
+    s = torch.exp(cl[..., -1:] - cl) * dtf  # (B,H,nc,Q)
+    states = torch.einsum("bcjn,bhcjp->bchnp", bf, xf * s[..., None])
+    return states, cl[..., -1].transpose(1, 2).contiguous()
+
+
+def ssd_state_pass_ref(states, cl_last):
+    """Pass 2: h <- h exp(cl_last) + S_c over the chunks in order, from
+    h = 0.  Returns each chunk's starting state (B,nc,H,N,P) and the final
+    state (B,H,N,P)."""
+    h = torch.zeros_like(states[:, 0])
+    starts = []
+    for ci in range(states.shape[1]):
+        starts.append(h)
+        h = h * torch.exp(cl_last[:, ci])[..., None, None] + states[:, ci]
+    return torch.stack(starts, dim=1), h
+
+
+def ssd_output_ref(x, dt, a_neg, b, c, starts, *, chunk):
+    """Pass 3: y = (C Bᵀ ∘ L ∘ dt) x + exp(cl_i) C_i h_start per chunk, in
+    x's dtype; the mask is applied before the exp."""
+    B, H, L, P = x.shape
+    Q = min(chunk, L)
+    nc = L // Q
+    xf = x.float().reshape(B, H, nc, Q, P)
+    dtf = dt.float().reshape(B, H, nc, Q)
+    bf = b.float().reshape(B, 1, nc, Q, -1)
+    cf = c.float().reshape(B, 1, nc, Q, -1)
+    cl = torch.cumsum(dtf * a_neg.float()[None, :, None, None], dim=-1)
+    causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    diff = (cl[..., :, None] - cl[..., None, :]).masked_fill(~causal,
+                                                            float("-inf"))
+    w = torch.matmul(cf, bf.transpose(-1, -2)) * torch.exp(diff) \
+        * dtf[..., None, :]
+    y = torch.matmul(w, xf) + torch.matmul(cf, starts.transpose(1, 2)) \
+        * torch.exp(cl)[..., None]
+    return y.reshape(B, H, L, P).to(x.dtype)
+
+
+def ssd_scan_passes_ref(x, dt, a_neg, b, c, *, chunk):
+    """The three passes composed: {"chunk_states", "chunk_decay",
+    "starts", "y", "h"} (chunk_decay is cl_last)."""
+    states, cl_last = ssd_chunk_states_ref(x, dt, a_neg, b, chunk=chunk)
+    starts, h = ssd_state_pass_ref(states, cl_last)
+    y = ssd_output_ref(x, dt, a_neg, b, c, starts, chunk=chunk)
+    return {"chunk_states": states, "chunk_decay": cl_last, "starts": starts,
+            "y": y, "h": h}

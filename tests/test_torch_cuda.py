@@ -176,26 +176,50 @@ def test_paged_kernel_bitwise_equals_linear_kernel(cuda, bs):
 
 @pytest.mark.gpu
 def test_ssd_kernel_matches_plain_version(cuda):
-    """Every (P, N) instantiation at the chunks the path uses: the tuning
-    chunks 32/64/128 at L = 128, the reduced config (N 32, P 32, chunk 32)
-    and mamba2-780m's width (P 64, N 128, chunk 256)."""
+    """Every (P, N) instantiation at the chunks the path uses (the tuning
+    chunks 32/64/128 at L = 128, the reduced config's chunk 32, mamba2-780m's
+    width at chunk 256), and the edge shapes: Q = L < chunk (one chunk, no
+    recurrence), Q = 12 and 20 (ragged 16-row tiles), H = 5 in head groups
+    of 3 and 2, a chunk of 512 (run as 256).  Inputs are the views
+    ssm_forward passes: x and dt transposed from model layout, x, b and c
+    slices of one (B, L, H P + 2 N) tensor.  y within the bf16 tolerance
+    and the fp32 state within 1e-3 of ref.ssd_scan_ref; each pass's fp32
+    intermediates (the chunk states, the starting states) within 1e-3 of
+    ref.ssd_scan_passes_ref; two calls bitwise equal (no atomics)."""
     from repro_torch.kernels import ssd_scan as ssd_k
     gen = torch.Generator(device=cuda).manual_seed(0)
     cases = [(1, 2, 128, 32, 16, c) for c in (32, 64, 128)]
     cases += [(2, 3, 128, P, N, 32) for P in (32, 64) for N in (16, 32, 64, 128)]
-    cases += [(1, 4, 512, 64, 128, 256), (2, 5, 256, 32, 64, 16)]
+    cases += [(1, 4, 512, 64, 128, 256), (2, 5, 256, 32, 64, 16),
+              (1, 2, 48, 32, 16, 256), (1, 3, 96, 64, 32, 12),
+              (2, 2, 120, 32, 128, 20), (2, 5, 2048, 64, 64, 64),
+              (1, 2, 1024, 32, 16, 512), (1, 48, 2048, 64, 128, 256)]
+    assert ssd_k.launch_shape(2, 5, 2048, 64)[0] == 3  # a group of 2 too
     for (B, H, L, P, N, chunk) in cases:
-        # model layout (B,L,H,P) and (B,L,H), handed over as views
-        x = torch.randn(B, L, H, P, device=cuda, generator=gen).to(torch.bfloat16)
+        xbc = torch.randn(B, L, H * P + 2 * N, device=cuda,
+                          generator=gen).to(torch.bfloat16)
+        x = xbc[..., :H * P].reshape(B, L, H, P)
+        b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
         dt = torch.nn.functional.softplus(
             torch.randn(B, L, H, device=cuda, generator=gen)).to(torch.bfloat16)
         a = -torch.exp(torch.randn(H, device=cuda, generator=gen) * 0.5)
-        b = torch.randn(B, L, N, device=cuda, generator=gen).to(torch.bfloat16)
-        c = torch.randn(B, L, N, device=cuda, generator=gen).to(torch.bfloat16)
         args = (x.transpose(1, 2), dt.transpose(1, 2), a, b, c)
         y, h = ssd_k.ssd_scan(*args, chunk=chunk)
+        y2, h2 = ssd_k.ssd_scan(*args, chunk=chunk)
+        got = ssd_k.ssd_scan_passes(*args, chunk=chunk)
         torch.cuda.synchronize()
+        case = (B, H, L, P, N, chunk)
+        assert torch.equal(y, y2) and torch.equal(h, h2), case
         wy, wh = ref.ssd_scan_ref(*args, chunk=chunk)
         # fp32 inside both, sums in another order; y rounded to bf16
-        torch.testing.assert_close(y.float(), wy.float(), **TOL)
-        torch.testing.assert_close(h, wh, rtol=1e-3, atol=1e-3)
+        torch.testing.assert_close(y.float(), wy.float(), **TOL,
+                                   msg=lambda m: f"{case}: {m}")
+        torch.testing.assert_close(h, wh, rtol=1e-3, atol=1e-3,
+                                   msg=lambda m: f"{case}: {m}")
+        want = ref.ssd_scan_passes_ref(
+            *args, chunk=ssd_k.kernel_chunk(min(chunk, L)))
+        for key in ("chunk_states", "starts", "chunk_decay"):
+            torch.testing.assert_close(got[key], want[key], rtol=1e-3,
+                                       atol=1e-3,
+                                       msg=lambda m: f"{case} {key}: {m}")
+        assert torch.equal(got["y"], y) and torch.equal(got["h"], h), case

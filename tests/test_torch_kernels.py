@@ -209,11 +209,19 @@ def test_paged_plain_matches_pallas(B, S, H, KV, D, bs, window, cap, dtype):
         (2, 4, 128, 64, 32, 32),
         (1, 8, 256, 32, 64, 64),
         (2, 3, 64, 64, 128, 16),  # odd head count, many chunks
+        (1, 2, 48, 32, 16, 256),  # one chunk, Q = L < chunk
+        (1, 3, 96, 64, 32, 12),   # Q = 12: less than one 16-row tile
+        (2, 2, 120, 32, 128, 20),  # Q = 20: a ragged second tile
+        (2, 5, 448, 32, 16, 16),  # H = 5 in head groups of 3 and 2
     ],
 )
 def test_ssd_plain_matches_pallas(B, H, L, P, N, chunk, dtype):
     """tests/test_kernels.py::test_ssd_scan_matches_oracle's grid and
-    tolerances, against the Pallas kernel itself."""
+    tolerances, and the edge shapes of the CUDA kernels, against the Pallas
+    kernel itself: the one-pass plain version and the three-pass plain
+    decomposition the CUDA kernels run (chunk states, the fp32 recurrence,
+    the output from the starting states), which also matches the one-pass
+    version to fp32 rounding."""
     rng = np.random.default_rng(2)
     x = rng.standard_normal((B, H, L, P)).astype(np.float32)
     dt = np.log1p(np.exp(rng.standard_normal((B, H, L)))).astype(np.float32)
@@ -228,14 +236,98 @@ def test_ssd_plain_matches_pallas(B, H, L, P, N, chunk, dtype):
                                            else torch.float32))
     before = ssd_k.ssd_scan.launches
     y, h = ssd_k.ssd_scan(*tx, chunk=chunk)
+    passes = ssd_k.ssd_scan_passes(*tx, chunk=chunk)
     assert ssd_k.ssd_scan.launches == before
     assert y.dtype == tx[0].dtype and h.dtype == torch.float32
+    assert passes["y"].dtype == y.dtype and passes["h"].dtype == torch.float32
     jy, jh = jax_ssd_scan(*jx, chunk=chunk, interpret=True)
     # bf16: the same inputs, fp32 inside both; y rounded to bf16
     tol = dict(rtol=5e-2, atol=1e-1) if dtype == "bfloat16" else \
         dict(rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(_f32(y), _f32(jy), **tol)
-    np.testing.assert_allclose(_f32(h), _f32(jh), **tol)
+    for got_y, got_h in ((y, h), (passes["y"], passes["h"])):
+        np.testing.assert_allclose(_f32(got_y), _f32(jy), **tol)
+        np.testing.assert_allclose(_f32(got_h), _f32(jh), **tol)
+    torch.testing.assert_close(passes["h"], h, rtol=1e-4, atol=1e-4)
+    nc = L // min(chunk, L)
+    assert passes["chunk_states"].shape == (B, nc, H, N, P)
+    assert passes["starts"].shape == (B, nc, H, N, P)
+    assert passes["chunk_decay"].shape == (B, nc, H)
+    assert not passes["starts"][:, 0].any()  # the scan starts from h = 0
+
+
+def test_ssd_plain_passes_on_model_layout_views():
+    """B = 2 on the views ssm_forward passes: x and dt transposed from
+    (B,L,H,·), b and c column slices of one (B,L,DI + 2N) tensor (row
+    stride DI + 2N).  The decomposition's intermediates against the one-pass
+    version chunk by chunk: the starting state of chunk k is the final state
+    of the scan over the first k chunks, in fp32."""
+    B, L, H, P, N, chunk = 2, 96, 3, 32, 16, 32
+    rng = np.random.default_rng(9)
+    xbc = torch.from_numpy(
+        rng.standard_normal((B, L, H * P + 2 * N)).astype(np.float32))
+    x = xbc[..., :H * P].reshape(B, L, H, P).transpose(1, 2)
+    b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.from_numpy(np.log1p(np.exp(rng.standard_normal((B, L, H))))
+                          .astype(np.float32)).transpose(1, 2)
+    a = -torch.exp(torch.from_numpy(rng.standard_normal(H).astype(np.float32)))
+    assert b.stride(1) == H * P + 2 * N and x.stride(2) == H * P + 2 * N
+    got = ssd_k.ssd_scan_passes(x, dt, a, b, c, chunk=chunk)
+    wy, wh = ref.ssd_scan_ref(x, dt, a, b, c, chunk=chunk)
+    torch.testing.assert_close(got["y"], wy, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got["h"], wh, rtol=1e-4, atol=1e-4)
+    for k in range(1, L // chunk):
+        _, hk = ref.ssd_scan_ref(x[:, :, :k * chunk], dt[:, :, :k * chunk], a,
+                                 b[:, :k * chunk], c[:, :k * chunk],
+                                 chunk=chunk)
+        torch.testing.assert_close(got["starts"][:, k], hk, rtol=1e-4,
+                                   atol=1e-4)
+    cl = torch.cumsum((dt * a[:, None]).reshape(B, H, -1, chunk), dim=-1)
+    torch.testing.assert_close(got["chunk_decay"], cl[..., -1].transpose(1, 2))
+
+
+@pytest.mark.parametrize("B,H,L,chunk,kernels,shape", [
+    (1, 48, 2048, 256, 3, (3, 6, 2)),  # mamba2-780m: 128 blocks a pass
+    (1, 2, 128, 32, 3, (1, 1, 1)),     # the tuning shapes
+    (1, 2, 128, 128, 2, (1, 1, 2)),    # one chunk: no recurrence
+    (1, 2, 48, 256, 2, (1, 1, 2)),     # Q = L < chunk
+    (2, 5, 448, 16, 3, (3, 3, 1)),     # H = 5: head groups of 3 and 2
+    (4, 48, 8192, 256, 3, (8, 8, 2)),  # many chunks: the group cap
+])
+def test_ssd_launch_geometry(B, H, L, chunk, kernels, shape):
+    """Kernels per call, heads per block and row blocks: each pass fills
+    the H100's 132 SMs at most once where it can, and a block holds at
+    most MAX_GROUP heads."""
+    assert ssd_k.ssd_kernels(B, H, L, chunk) == kernels
+    G1, G3, R = ssd_k.launch_shape(B, H, L, chunk)
+    assert (G1, G3, R) == shape
+    nc = L // ssd_k.kernel_chunk(min(chunk, L))
+    for G, blocks in ((G1, B * nc), (G3, B * nc * R)):
+        assert 1 <= G <= ssd_k.MAX_GROUP
+        assert blocks * -(-H // G) <= 132 or G == ssd_k.MAX_GROUP
+
+
+@pytest.mark.parametrize("Q,want", [(4, 4), (12, 12), (256, 256), (260, 52),
+                                    (512, 256), (1024, 256), (1000, 200)])
+def test_ssd_kernel_chunk_divides_the_chunk(Q, want):
+    """A chunk above 256 rows runs as its largest divisor of at most 256
+    rows that is a multiple of 4; the scan's function does not depend on
+    the chunk (ssd_scan_ref agrees across chunks to fp32 rounding)."""
+    assert ssd_k.kernel_chunk(Q) == want
+    assert Q % want == 0 and want % 4 == 0 and want <= ssd_k.MAX_CHUNK
+
+
+def test_ssd_plain_does_not_depend_on_the_chunk():
+    rng = np.random.default_rng(3)
+    B, H, L, P, N = 1, 2, 512, 32, 16
+    x = torch.from_numpy(rng.standard_normal((B, H, L, P)).astype(np.float32))
+    dt = torch.from_numpy(np.log1p(np.exp(rng.standard_normal((B, H, L))))
+                          .astype(np.float32))
+    a = -torch.ones(H)
+    b = torch.from_numpy(rng.standard_normal((B, L, N)).astype(np.float32))
+    y1, h1 = ref.ssd_scan_ref(x, dt, a, b, b.flip(1), chunk=512)
+    y2, h2 = ref.ssd_scan_ref(x, dt, a, b, b.flip(1), chunk=256)
+    torch.testing.assert_close(y1, y2, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h1, h2, rtol=1e-4, atol=1e-4)
 
 
 def test_paged_and_ssd_ops_wrappers_model_layout():
