@@ -1,0 +1,79 @@
+"""Measured gradient sync against Lemma 3.2, per strategy, on the cards.
+
+    PYTHONPATH=src python -m benchmarks.torch_sync_strategies \\
+        [--layers 4] [--steps 5] [--batch-per-rank 2] [--seq 512] \\
+        [--link-bw 450e9] [--device cuda]
+
+Runs ``DataParallelTrainer`` on every visible card (one rank each, NCCL;
+``--device cpu --dp N`` runs N ranks on the CPU over gloo) for each of
+the four strategies, uncompressed: granite-3-2b at full width with
+``--layers`` layers, random weights from seed 0, ``auto`` attention with
+block remat, AdamW.  Prints one JSON line per strategy with the
+``SyncReport`` (the measured sync phase beside Lemma 3.2's prediction for
+the same payload, dp and ``--link-bw``) and the card's name and power
+limit.  ``--link-bw`` defaults to 450e9 bytes/s, the H100 SXM data
+sheet's NVLink bandwidth per direction (900 GB/s both ways).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+import torch
+
+from repro_torch.configs.base import get_config
+from repro_torch.distributed.collectives import STRATEGIES
+from repro_torch.distributed.trainer import DataParallelTrainer
+from repro_torch.models.blocks import RunConfig
+from repro_torch.optim.adamw import OptConfig
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--batch-per-rank", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--link-bw", type=float, default=450e9)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dp", type=int, default=0,
+                    help="ranks (default: every visible card)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the reduced config (a CPU rehearsal)")
+    args = ap.parse_args()
+    if args.device == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("torch_sync_strategies: needs a CUDA device")
+        dp = args.dp or torch.cuda.device_count()
+        devices = [f"cuda:{i}" for i in range(dp)]
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), flush=True)
+    else:
+        dp = args.dp or 2
+        devices = [args.device] * dp
+    cfg = get_config("granite-3-2b")
+    cfg = cfg.reduced() if args.reduced else cfg.replace(
+        num_layers=args.layers)
+    run = RunConfig(attn_impl="auto", remat="block")
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=args.steps)
+    for name in STRATEGIES:
+        tr = DataParallelTrainer(cfg, run, opt, strategy=name,
+                                 devices=devices, link_bw=args.link_bw)
+        try:
+            res = tr.train(batch=args.batch_per_rank * dp, seq=args.seq,
+                           steps=args.steps, log_every=0)
+            rep = tr.report().as_dict()
+        finally:
+            tr.close()
+        print(json.dumps({"strategy": name, "dp": dp, "layers": cfg.num_layers,
+                          "losses": res.losses, "sync": rep}), flush=True)
+        del tr
+        if args.device == "cuda":
+            torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

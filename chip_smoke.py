@@ -63,6 +63,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
    held to its plain variant on the same inputs.  Then host_microbench()
    and choose_conv_algs(128, the card's memory).
 
+8. train — the training path, which launches none of the four kernels
+   (their counters are zeroed before and must read 0 after):
+   Session.train() of full-width granite-3-2b (40 layers, random weights
+   from seed 0; batch 4 x seq 512, 4 steps, RunConfig(attn_impl="auto",
+   remat="block"), AdamW with warmup 1 on fp32 masters held on the card):
+   every loss finite; it prints tokens/s, the step phases, R_O,
+   torch.cuda.max_memory_allocated() and the wall time.  The same 4 steps
+   from weights with smoothed attention (as phase 4): every loss finite,
+   the last below the first (at JAX's init the 40-layer model does not
+   learn in 4 steps: PERF.md).
+   Then one train step of a 2-layer full-width model in fp32 (TF32 off)
+   on the card against the same step on the CPU (loss, grad_norm, every
+   gradient and the updated params within 2e-4 + 2e-4 * max |want|, but
+   where the clipped gradient is below 100 * eps: there AdamW's first
+   step turns on ~1e-8 of rounding, and the limit is 2 * lr + 2e-4), and the
+   DataParallelTrainer with all_reduce over NCCL at dp = 1 (4 layers, 3
+   steps) against the loop from the same params (same limit), with its
+   SyncReport.  Both use attention-smoothed weights (as phase 4).
+
 Then it prints the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line, and, last, the
 {"ok": true, "device": {...}} line.
@@ -70,6 +89,7 @@ Then it prints the card's name and power limit (nvidia-smi), a
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -79,6 +99,7 @@ from pathlib import Path
 H100_HBM_BPS = 3.35e12   # H100 SXM data sheet, bytes/s
 H100_BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 tensor-core FLOP/s
 TOL = 3e-2  # bf16 rtol = atol, as tests/test_kernels.py
+FP32_TOL = 2e-4  # fp32, as tests/test_kernels.py
 SSD_RTOL, SSD_ATOL = 5e-2, 1e-1  # tests/test_kernels.py's bf16 SSD tolerance
 LAYERS = 40  # granite-3-2b
 REPLACES = {
@@ -297,6 +318,18 @@ def print_cases(cases) -> None:
               f"{ms(r['library_device_ms'])})", flush=True)
 
 
+def smooth_attention(params, cfg):
+    """Rescale the attention projections in place so each has std
+    1/sqrt(fan-in of the whole product); returns ``params``."""
+    D, H, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    mix = params["slots"]["slot0"]["mixer"]
+    mix["wq"].mul_((H / D) ** 0.5)
+    mix["wk"].mul_((KV / D) ** 0.5)
+    mix["wv"].mul_((KV / D) ** 0.5)
+    mix["wo"].mul_(H ** -0.5)
+    return params
+
+
 def reference_check(torch, M, RunConfig, materialize, cfg, dev="cuda",
                     prompt_len=64):
     """Full-width prefill + one decode step through the kernels against the
@@ -307,13 +340,8 @@ def reference_check(torch, M, RunConfig, materialize, cfg, dev="cuda",
     so any rounding difference in a layer's input is amplified through the
     stack); with smooth attention the two paths must agree within the bf16
     tolerance at every depth."""
-    params = M.cast_params(materialize(M.model_specs(cfg), 0, dev), cfg)
-    D, H, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-    mix = params["slots"]["slot0"]["mixer"]
-    mix["wq"].mul_((H / D) ** 0.5)
-    mix["wk"].mul_((KV / D) ** 0.5)
-    mix["wv"].mul_((KV / D) ** 0.5)
-    mix["wo"].mul_(H ** -0.5)
+    params = smooth_attention(
+        M.cast_params(materialize(M.model_specs(cfg), 0, dev), cfg), cfg)
     toks = torch.randint(0, cfg.vocab_size, (1, prompt_len), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(3))
     pos = torch.tensor([prompt_len], dtype=torch.int32, device=dev)
@@ -608,6 +636,173 @@ def tune_phase(torch, autotune, ops, wrappers):
     return launches
 
 
+def trees_close(tree_items, got, want, tol=FP32_TOL):
+    """Max |got - want| over every leaf, and whether each leaf is within
+    tol + tol * max |want|."""
+    worst, ok = 0.0, True
+    for (_, g), (_, w) in zip(tree_items(got), tree_items(want)):
+        w = w.float().to(g.device)
+        err = (g.float() - w).abs().max().item()
+        worst = max(worst, err)
+        ok &= err <= tol + tol * w.abs().max().item()
+    return ok, worst
+
+
+def adam_close(tree_items, got, want, grads, *, scale, lr,
+               tol=FP32_TOL):
+    """Updated params after one AdamW step against a reference: within
+    tol + tol * max |want| per leaf, except where the reference's clipped
+    gradient is below 100 * eps (AdamW's first step moves an element by
+    lr * g / (|g| + eps), which there turns on rounding of ~1e-8): there
+    within 2 * lr, the most that step can move it, plus tol for the
+    rounding of the update itself.  Returns (ok, max diff elsewhere, count
+    of those elements, max diff on them)."""
+    ok, worst, n_eps, worst_eps = True, 0.0, 0, 0.0
+    for (_, g), (_, w), (_, gr) in zip(tree_items(got), tree_items(want),
+                                       tree_items(grads)):
+        d = (g.float().cpu() - w.float().cpu()).abs()
+        tiny = (gr.float().cpu() * scale).abs() < 100 * 1e-8
+        lim = tol + tol * w.float().abs().max().item()
+        rest = d[~tiny].max().item() if bool((~tiny).any()) else 0.0
+        eps = d[tiny].max().item() if bool(tiny.any()) else 0.0
+        ok &= rest <= lim and eps <= 2 * lr + tol
+        worst, worst_eps = max(worst, rest), max(worst_eps, eps)
+        n_eps += int(tiny.sum())
+    return ok, worst, n_eps, worst_eps
+
+
+def train_phase(torch, wrappers) -> None:
+    """Phase 8: the training path (see the module docstring)."""
+    from repro_torch.api import JobSpec, Session
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.trainer import DataParallelTrainer
+    from repro_torch.launch.steps import build_grad_fn
+    from repro_torch.models import model as M
+    from repro_torch.models.common import materialize, tree_items, tree_map
+    from repro_torch.optim.adamw import OptConfig, apply_updates, init_state
+    from repro_torch.train.loop import train
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    granite = get_config("granite-3-2b")
+    # 8.1: full width through the entry point a user calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    spec = JobSpec(arch="granite-3-2b", reduced=False, steps=4, batch=4,
+                   seq=512, log_every=1)
+    session = Session(spec, device="cuda")
+    rep = session.train()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    m = rep.measured
+    losses = m["losses"]
+    hist = m["metrics"]["histograms"]["train/step_s"]
+    print(f"[train] granite-3-2b full width (40 layers, "
+          f"{rep.meta['executed_config']['n_params']:,} params), batch 4 x "
+          f"seq 512, 4 steps, auto attention + block remat, AdamW on fp32 "
+          f"masters: losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"[train] tokens/s {m['tokens_per_s']:.1f} over the run (first "
+          f"step included); step wall p50 {hist['p50'] * 1e3:.1f} ms, min "
+          f"{hist['min'] * 1e3:.1f}, max {hist['max'] * 1e3:.1f}; steady "
+          f"step phases (s) {json.dumps(m['step_times_mean'])}; R_O "
+          f"{m['r_o']:.4f}; peak memory {peak / 1e9:.2f} GB "
+          f"(max_memory_allocated); phase wall {wall:.1f} s", flush=True)
+    if not all(map(math.isfinite, losses)):
+        fail(f"full-width training losses {losses}: not finite")
+    run, opt = session.build_run_opt()
+    del rep, session
+    torch.cuda.empty_cache()
+
+    # 8.1b: learning at full width and depth.  At JAX's init (fan-in =
+    # heads for wq/wk/wv: scores of std ~64, a one-hot softmax) the
+    # 40-layer model does not learn in 4 steps (PERF.md, section 6: the
+    # loss rose for 4 of 4 seeds); with the attention weights smoothed, as
+    # in phase 4, the same loop with the same run and optimizer settings
+    # must bring the loss down.
+    params = smooth_attention(materialize(M.model_specs(granite), 0, "cuda"),
+                              granite)
+    res = train(granite, run, opt, batch=4, seq=512, steps=4, seed=0,
+                device="cuda", params=params, log_every=0)
+    print(f"[train] the same 40-layer run with smoothed attention weights: "
+          f"losses {[round(x, 4) for x in res.losses]}", flush=True)
+    if not all(map(math.isfinite, res.losses)) \
+            or not res.losses[-1] < res.losses[0]:
+        fail(f"full-width training losses {res.losses}: not finite or not "
+             "falling")
+    del params
+    torch.cuda.empty_cache()
+
+    # 8.2: one step on the card against the same step on the CPU, fp32
+    cfg = granite.replace(num_layers=2, dtype="float32")
+    opt = OptConfig(lr=1e-3, warmup_steps=0)
+    p_cpu = smooth_attention(materialize(M.model_specs(cfg), 0, "cpu"), cfg)
+    p_gpu = tree_map(lambda a: a.to("cuda"), p_cpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(4))
+    grads_of = build_grad_fn(cfg, run)
+    out = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        t = toks.to(dev)
+        loss, _, g = grads_of(p, {"tokens": t, "labels": t})
+        _, _, gnorm = apply_updates(opt, p, g, init_state(opt, p))
+        out[dev] = (loss.item(), gnorm.item(), g)
+    for k, name in enumerate(("loss", "grad_norm")):
+        got, want = out["cuda"][k], out["cpu"][k]
+        if abs(got - want) > FP32_TOL + FP32_TOL * abs(want):
+            fail(f"card and CPU {name}: {got} vs {want}")
+    ok_g, worst_g = trees_close(tree_items, out["cuda"][2],
+                                out["cpu"][2])
+    ok_p, worst_p, n_eps, worst_eps = adam_close(
+        tree_items, p_gpu, p_cpu, out["cpu"][2],
+        scale=min(1.0, opt.grad_clip / out["cpu"][1]), lr=opt.lr)
+    print(f"[train] 2-layer full-width fp32 step, card vs CPU: loss "
+          f"{out['cuda'][0]:.6f} vs {out['cpu'][0]:.6f}, grad_norm "
+          f"{out['cuda'][1]:.6f} vs {out['cpu'][1]:.6f}; grads max |diff| "
+          f"{worst_g:.3e}; updated params max |diff| {worst_p:.3e} (limit "
+          f"2e-4 + 2e-4 * max |want| per leaf), and {worst_eps:.3e} on the "
+          f"{n_eps} elements whose clipped gradient is below 100 * eps, "
+          f"where AdamW's first direction g / (|g| + eps) turns on 1e-8 "
+          f"of rounding (limit 2 * lr + 2e-4)", flush=True)
+    if not ok_g:
+        fail(f"card and CPU gradients differ by up to {worst_g}")
+    if not ok_p:
+        fail(f"card and CPU updated params differ by up to {worst_p} "
+             f"({worst_eps} where the gradient is below 100 * eps)")
+    del out, p_cpu, p_gpu
+
+    # 8.3: the data-parallel trainer, all_reduce over NCCL at dp = 1,
+    # against the loop from the same params and loader seed
+    cfg = granite.replace(num_layers=4)
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=3)
+    p0 = smooth_attention(materialize(M.model_specs(cfg), 0, "cuda"), cfg)
+    p_loop = tree_map(torch.clone, p0)
+    res = train(cfg, run, opt, batch=4, seq=512, steps=3, device="cuda",
+                params=p_loop, log_every=0)
+    tr = DataParallelTrainer(cfg, run, opt, strategy="all_reduce",
+                             devices=["cuda:0"])
+    try:
+        res_dp = tr.train(batch=4, seq=512, steps=3, params=p0, log_every=0)
+        sync = tr.report().as_dict()
+    finally:
+        tr.close()
+    ok, worst = trees_close(tree_items, tr.params[0], p_loop)
+    print(f"[train] DataParallelTrainer all_reduce over NCCL, dp 1, 4 "
+          f"layers, 3 steps: losses {res_dp.losses} vs the loop's "
+          f"{res.losses}; params max |diff| {worst:.3e}", flush=True)
+    print(f"[train] sync report {json.dumps(sync)}", flush=True)
+    if not ok or max(abs(a - b) for a, b in zip(res_dp.losses, res.losses)) \
+            > FP32_TOL + FP32_TOL * max(map(abs, res.losses)):
+        fail("the dp = 1 trainer and the loop disagree")
+    del tr, p0, p_loop
+    torch.cuda.empty_cache()
+    moved = {name: fn.launches for name, fn in wrappers.items()
+             if fn.launches}
+    if moved:
+        fail(f"the training path launched kernels: {moved}")
+    print("[train] no kernel launched on the training path", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -786,6 +981,13 @@ def main() -> None:
     # B1 and B2 keep the serve phase's counts; B3 and B4 run on this path
     for kernel in ("paged_decode_attention", "ssd_scan"):
         launches[kernel] = tuned[kernel]
+
+    # 8. train -----------------------------------------------------------------
+    train_phase(torch, {
+        "flash_attention": fa_k.flash_attention,
+        "decode_attention": dec_k.decode_attention,
+        "paged_decode_attention": dec_k.paged_decode_attention,
+        "ssd_scan": ssd_k.ssd_scan})
 
     leaked = sorted(n for n in sys.modules
                     if n.split(".")[0] in ("jax", "jaxlib", "repro"))

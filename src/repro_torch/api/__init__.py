@@ -1,5 +1,6 @@
-"""The port's facade: ``JobSpec`` -> ``Session.serve()`` -> ``ServeReport``."""
-from repro_torch.api.session import ServeReport, Session
+"""The port's facade: ``JobSpec`` -> ``Session.train()`` / ``.bench()`` /
+``.serve()`` -> ``Report``."""
+from repro_torch.api.session import Report, Session
 from repro_torch.api.spec import JobSpec
 
-__all__ = ["JobSpec", "ServeReport", "Session"]
+__all__ = ["JobSpec", "Report", "Session"]

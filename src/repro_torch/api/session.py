@@ -1,15 +1,23 @@
 """Session — execute a :class:`JobSpec` (the port of
-``repro.api.session``; ``serve`` only).
+``repro.api.session``; ``train``, ``bench`` and ``serve``).
 
+``Session.train()`` runs the training loop on the session's device
+(``spec.dp == 0``) or the data-parallel trainer on ``spec.dp`` ranks, with
+the JAX package's run configuration when the planner is off
+(``RunConfig(attn_impl="auto", remat="block")``, AdamW with a tenth of the
+steps as warmup).  ``bench`` is the same run reported as ``bench``.
 ``Session.serve()`` runs the spec's serving workload through the static
 ``BatchScheduler`` or the continuous scheduler over the paged KV cache,
-with attention on the hand-written kernels (``attn_impl="kernel"``), and
-returns a :class:`ServeReport` whose ``measured`` dict has the same keys as
-the JAX package's.  The serving section carries the measured half of the
-replica lemma only: its prediction and the Eq.-5-derived KV pool need the
-planner math (``core/ps``, ``core/memory_model``, ``core/hardware``),
-which is not ported yet (ROADMAP).  The pool is the working-set cap
-``max_batch * ceil(s_max / kv_block)`` unless ``max_kv_blocks`` pins it.
+with attention on the hand-written kernels (``attn_impl="kernel"``).
+
+Every method returns a :class:`Report` whose ``measured`` dict has the JAX
+package's keys.  The planner's ``predicted`` block is left out: the
+planner (``core/planner.py``) is not ported yet, so there is no
+prediction to report.  For the same reason the serving section carries
+the measured half of the replica lemma only, and the KV pool is the
+working-set cap ``max_batch * ceil(s_max / kv_block)`` unless
+``max_kv_blocks`` pins it.  Options whose modules are not ported raise
+``NotImplementedError`` naming their ROADMAP item; nothing falls back.
 """
 from __future__ import annotations
 
@@ -30,14 +38,16 @@ from repro_torch.models.blocks import RunConfig
 from repro_torch.models.common import param_count, resolve_device
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.obs.trace import monotonic
+from repro_torch.optim.adamw import OptConfig
 
 SERVING_SCHEMA_ID = "repro.api/serving/v1"
 
 
 @dataclass
-class ServeReport:
-    """What ``Session.serve`` returns: the spec, the measured dict, and
-    provenance (the config that ran and the device it ran on)."""
+class Report:
+    """What a Session method returns: the kind (train | bench | serve), the
+    spec, the measured dict, and provenance (the config that ran and the
+    device it ran on)."""
 
     kind: str
     spec: Dict[str, Any]
@@ -85,7 +95,115 @@ class Session:
         return {"trace_file": str(path), "trace_events": len(tracer)}
 
     # ------------------------------------------------------------------
-    def serve(self) -> ServeReport:
+    def build_run_opt(self) -> Tuple[RunConfig, OptConfig]:
+        """RunConfig/OptConfig for this spec: the JAX package's settings
+        without the planner."""
+        spec = self.spec
+        if spec.use_planner:
+            raise NotImplementedError(
+                "use_planner: the planner (core/planner.py) is not ported "
+                "yet (ROADMAP Next 5)")
+        if spec.tune:
+            raise NotImplementedError(
+                "tune: the autotuner beyond bench_kernels is not ported yet "
+                "(ROADMAP Next 6, the rest of Session.tune())")
+        run = RunConfig(attn_impl="auto", remat="block")
+        opt = OptConfig(lr=spec.lr, warmup_steps=max(spec.steps // 10, 1),
+                        total_steps=spec.steps)
+        return run, opt
+
+    def train(self) -> Report:
+        """Run the training loop (``spec.dp == 0``) or the data-parallel
+        trainer (``spec.dp > 0``)."""
+        return self._run_train("train")
+
+    def bench(self) -> Report:
+        """A measured run reported as a benchmark artifact: the same
+        execution as :meth:`train`, kind ``bench``."""
+        return self._run_train("bench")
+
+    def _check_train_options(self) -> None:
+        spec = self.spec
+        if spec.pipe > 1:
+            raise NotImplementedError(
+                f"pipe={spec.pipe}: 1F1B pipeline parallelism "
+                "(distributed/pipeline.py) is not ported yet (ROADMAP Next 3)")
+        if spec.staleness or spec.backup_workers:
+            raise NotImplementedError(
+                "staleness/backup_workers: the async parameter server "
+                "(distributed/async_ps.py) is not ported yet (ROADMAP Next 2)")
+        if spec.sync_overlap:
+            raise NotImplementedError(
+                "sync_overlap: bucketed overlap (distributed/overlap.py) is "
+                "not ported yet (ROADMAP Next 1)")
+        if spec.ckpt_dir:
+            raise NotImplementedError(
+                "ckpt_dir: checkpointing (checkpoint/{io,manager}.py) is not "
+                "ported yet (ROADMAP Next 4)")
+        if spec.dp and spec.sync == "auto":
+            raise NotImplementedError(
+                "sync='auto' with dp > 0 resolves the planner's "
+                "sync_schedule (DataParallelTrainer.from_plan); the planner "
+                "is not ported yet (ROADMAP Next 5): name a schedule")
+
+    def _dp_devices(self) -> List[torch.device]:
+        """One device per rank: ``cuda:0..dp-1``, or the CPU for every
+        rank when the session runs on the CPU."""
+        dp = self.spec.dp
+        if self.device.type == "cpu":
+            return [self.device] * dp
+        n = torch.cuda.device_count()
+        if n < dp:
+            raise RuntimeError(f"dp={dp} but only {n} devices visible")
+        return [torch.device("cuda", i) for i in range(dp)]
+
+    def _run_train(self, kind: str) -> Report:
+        from repro_torch.core.hardware import get_cluster
+        from repro_torch.distributed.trainer import DataParallelTrainer
+        from repro_torch.train.loop import train as train_loop
+
+        spec = self.spec
+        self._check_train_options()
+        run, opt = self.build_run_opt()
+        tracer, metrics = self._make_obs()
+        loop_kw = dict(batch=spec.batch, seq=spec.seq, steps=spec.steps,
+                       seed=spec.seed, log_every=spec.log_every)
+        sync_rep = None
+        if spec.dp:
+            trainer = DataParallelTrainer(
+                self.cfg, run, opt, strategy=spec.sync,
+                compression=spec.compress, devices=self._dp_devices(),
+                topology=get_cluster(spec.topology) if spec.topology else None,
+                tracer=tracer, metrics=metrics)
+            try:
+                res = trainer.train(**loop_kw)
+                sync_rep = trainer.report()
+            finally:
+                trainer.close()
+        else:
+            res = train_loop(self.cfg, run, opt, device=self.device,
+                             tracer=tracer, **loop_kw)
+            # the loop has no phase-publishing step, so the session
+            # publishes its StepTimes into the registry
+            for t in res.step_times:
+                metrics.inc("train/steps")
+                metrics.observe("train/compute_s", t.compute)
+                metrics.observe("train/dist_update_s", t.dist_update)
+                metrics.observe("train/param_update_s", t.param_update)
+                metrics.observe("train/step_s",
+                                t.compute + t.dist_update + t.param_update)
+        measured = res.summary()
+        metrics.set_gauge("train/tokens_per_s", measured["tokens_per_s"])
+        metrics.set_gauge("train/r_o", measured["r_o"])
+        if sync_rep is not None:
+            measured["sync"] = sync_rep.as_dict()
+        measured["metrics"] = metrics.section()
+        meta = self.report_meta()
+        meta.update(self._save_trace(kind, tracer))
+        return Report(kind, spec.to_dict(), measured, meta)
+
+    # ------------------------------------------------------------------
+    def serve(self) -> Report:
         """Batched generation, measured end to end.  ``spec.serve_mode``
         picks the runtime: ``continuous`` (in-flight batching over the
         paged KV cache) or ``static`` (the FIFO Engine/BatchScheduler)."""
@@ -178,7 +296,7 @@ class Session:
                         "peak_blocks": 0, "peak_occupancy": 0.0,
                         "shared_block_hits": 0, "block_bytes": 0.0}
 
-    def _serve_static(self) -> ServeReport:
+    def _serve_static(self) -> Report:
         """The FIFO Engine/BatchScheduler runtime (linear cache)."""
         from repro_torch.serve.engine import BatchScheduler, Engine
 
@@ -199,7 +317,7 @@ class Session:
                             dict(self._STATIC_KV_STATS), lengths, wall,
                             {"batches": [g.stats() for g in sched.history]})
 
-    def _serve_continuous(self) -> ServeReport:
+    def _serve_continuous(self) -> Report:
         """In-flight batching over the paged KV cache."""
         from repro_torch.serve.arrivals import make_trace
         from repro_torch.serve.continuous import (ContinuousEngine,
@@ -229,7 +347,7 @@ class Session:
                             kv.stats(), lengths, wall, {})
 
     def _finish(self, mode, tracer, metrics, results, sched, kv_stats,
-                lengths, wall, extra) -> ServeReport:
+                lengths, wall, extra) -> Report:
         spec = self.spec
         per_request = self._per_request(results, sched.latencies)
         n_tokens = sum(r["tokens"] for r in per_request)
@@ -254,7 +372,7 @@ class Session:
         }
         meta = self.report_meta()
         meta.update(self._save_trace("serve", tracer))
-        return ServeReport("serve", spec.to_dict(), measured, meta)
+        return Report("serve", spec.to_dict(), measured, meta)
 
     def report_meta(self) -> Dict[str, Any]:
         """Provenance: the config that executed and the device it ran on."""

@@ -17,16 +17,15 @@ from dataclasses import dataclass
 from typing import Any, Dict
 
 from repro_torch.configs.base import ARCH_IDS, SHAPES
+from repro_torch.core import ps as ps_lib
+from repro_torch.core.hardware import CLUSTERS
+
 MESHES = ("single", "multi")
-# copies of the names the JAX package checks against: the gradient-sync
-# schedules (repro.core.ps.SCHEDULES), the named cluster topologies
-# (repro.core.hardware.CLUSTERS; "" = the mesh's flat equivalent) and the
-# compressors (repro.distributed.compression.COMPRESSORS)
-SCHEDULES = ("all_reduce", "reduce_scatter_all_gather", "parameter_server",
-             "hier_all_reduce")
-SYNCS = ("auto",) + SCHEDULES
-TOPOLOGIES = ("", "2pod-dcn", "2x4", "4x4-ib", "flat16", "flat8", "p2-2x8",
-              "pod")
+SYNCS = ("auto",) + ps_lib.SCHEDULES
+# "" = the mesh's flat equivalent
+TOPOLOGIES = ("",) + tuple(sorted(CLUSTERS))
+# names mirror repro_torch.distributed.compression.COMPRESSORS (kept
+# import-light: the spec does not pull in torch.distributed)
 COMPRESSIONS = ("none", "bf16", "int8", "topk")
 
 

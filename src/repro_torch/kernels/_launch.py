@@ -31,6 +31,23 @@ def check_inputs(op: str, tensors: Sequence[torch.Tensor],
         raise ValueError(f"{op}: head dim {head_dim} not in {HEAD_DIMS}")
 
 
+def refuse_autograd(op: str, tensors: Sequence[torch.Tensor], use: str) -> None:
+    """Raise when autograd would record this call: the kernels have no
+    backward, and their output, filled by a C call, would carry no
+    ``grad_fn`` on the card, silently dropping every gradient above it.
+    Checked on every device, so the CPU (plain-version) path refuses what
+    the card would."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{op}: the kernel has no backward (the JAX package's Pallas "
+            f"kernels have none either); {use}, or call it under "
+            "torch.no_grad() / torch.inference_mode()")
+
+
+ATTENTION_USE = "training runs attention with attn_impl 'dense', " \
+    "'chunked' or 'auto'"
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

@@ -33,7 +33,8 @@ the shape above).  With one split (S <= 64) there is no combine.
 
 CPU tensors take the plain versions (``ref.decode_attention_ref``,
 ``ref.paged_decode_attention_ref``); CUDA tensors launch the kernel or
-raise.  ``decode_attention.launches`` and
+raise.  On either device a wrapper raises when autograd would record it
+(the kernels have no backward).  ``decode_attention.launches`` and
 ``paged_decode_attention.launches`` count wrapper calls that launch.
 """
 from __future__ import annotations
@@ -120,6 +121,8 @@ def decode_attention(q, k, v, pos, *, scale: float, window: int = 0,
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
                          f"pos {tuple(pos.shape)}")
+    _launch.refuse_autograd("decode_attention", (q, k, v),
+                            _launch.ATTENTION_USE)
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, pos, scale=scale,
                                         window=window, cap=cap)
@@ -158,6 +161,8 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, *, scale: float,
         raise ValueError(f"paged_decode_attention: q {tuple(q.shape)}, "
                          f"pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)}, "
                          f"table {tuple(table.shape)}, pos {tuple(pos.shape)}")
+    _launch.refuse_autograd("paged_decode_attention", (q, k_pool, v_pool),
+                            _launch.ATTENTION_USE)
     if q.device.type == "cpu":
         return ref.paged_decode_attention_ref(q, k_pool, v_pool, table, pos,
                                               scale=scale, window=window,

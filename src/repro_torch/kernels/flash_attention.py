@@ -15,8 +15,9 @@ diagonal or before the window never loaded; see the source for the
 layouts.
 
 CPU tensors take the plain version (``ref.flash_attention_ref``); CUDA
-tensors launch the kernel or raise.  ``flash_attention.launches`` counts
-wrapper calls that launch.
+tensors launch the kernel or raise.  On either device the wrapper raises
+when autograd would record it (the kernel has no backward).
+``flash_attention.launches`` counts wrapper calls that launch.
 """
 from __future__ import annotations
 
@@ -54,6 +55,8 @@ def flash_attention(q, k, v, *, scale: float, window: int = 0,
     if H % KV or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    _launch.refuse_autograd("flash_attention", (q, k, v),
+                            _launch.ATTENTION_USE)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, scale=scale, window=window,
                                        cap=cap)

@@ -27,7 +27,9 @@ function does not depend on the chunk.  dt is read through its strides
 their row strides (slices of the model's (x, B, C) tensor).
 
 CPU tensors take the plain version; CUDA tensors launch the kernels or
-raise.  ``ssd_scan.launches`` counts wrapper calls that launch.
+raise.  On either device the wrapper raises when autograd would record it
+(the kernels have no backward).  ``ssd_scan.launches`` counts wrapper
+calls that launch.
 """
 from __future__ import annotations
 
@@ -159,6 +161,8 @@ def _run(x, dt, a_neg, b, c, Q: int, upto: int):
 def ssd_scan(x, dt, a_neg, b, c, *, chunk: int = 256):
     """x (B,H,L,P), dt (B,H,L), a_neg (H,), b/c (B,L,N) -> (y, h_final)."""
     Q = _check(x, dt, a_neg, b, c, chunk)[-1]
+    _launch.refuse_autograd("ssd_scan", (x, dt, a_neg, b, c),
+                            "training runs the Mamba mixer with impl 'auto'")
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, a_neg, b, c, chunk=chunk)
     y, h, _ = _run(x, dt, a_neg, b, c, Q, upto=3)

@@ -3,11 +3,17 @@ full-sequence path (prefill) and cached single-token decode.
 
 ``impl`` names the attention algorithm:
 
-* ``"dense"``  — the plain reference (:func:`dense_attention`, the model-
+* ``"dense"``   — the plain reference (:func:`dense_attention`, the model-
   level oracle the JAX package also keeps);
-* ``"kernel"`` — the hand-written CUDA kernels, the counterpart of JAX's
+* ``"chunked"`` — :func:`chunked_attention`, the blocked online-softmax
+  attention in plain PyTorch (JAX's XLA flash reference);
+* ``"auto"``    — ``chunked`` when the key length exceeds 2048, else
+  ``dense``, as in JAX; the training path runs it;
+* ``"kernel"``  — the hand-written CUDA kernels, the counterpart of JAX's
   ``"pallas"``: prefill goes to the flash kernel, decode to the decode
-  kernel.  On CPU tensors they run their plain versions.
+  kernel.  On CPU tensors they run their plain versions.  They have no
+  backward (neither have JAX's Pallas kernels), so training uses the other
+  three.
 
 Shapes: x (B, S, D); caches are per-slot dicts of (B, S_max, KV, hd).
 MLA, int8 KV caches and chunked prefill are not ported yet (ROADMAP A10,
@@ -19,12 +25,15 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import ParamSpec, rope, softcap
 
 NEG_INF = -2.0e38
-IMPLS = ("dense", "kernel")
+IMPLS = ("dense", "chunked", "auto", "kernel")
+# "auto" switches to the chunked path above this key length, as JAX does
+AUTO_CHUNKED_ABOVE = 2048
 
 
 # ---------------------------------------------------------------------------
@@ -84,13 +93,78 @@ def dense_attention(q, k, v, q_pos, k_pos, *, scale, window=0, cap=0.0):
     return out.reshape(B, Sq, H, v.shape[-1])
 
 
+def chunked_attention(q, k, v, q_pos, k_pos, *, scale, window=0, cap=0.0,
+                      kv_block=1024, q_block=2048):
+    """Triangular blocked online-softmax attention (JAX's XLA flash
+    reference, ``chunked_attention``).
+
+    An outer loop over query blocks, each seeing a static KV prefix (no
+    work on fully-masked future blocks; a sliding window also bounds the
+    prefix from below), and an inner loop over KV blocks with a running
+    (max, denom, acc) in fp32.  Padded query rows carry position -1 and
+    padded keys position 2**30, so both are masked.  Live memory is
+    O(q_block * kv_block * H)."""
+    B, Sq, H, dk = q.shape
+    Sk, KV, dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // KV
+    q_block = min(q_block, Sq)
+    kv_block = min(kv_block, Sk)
+    q_pad = -Sq % q_block
+    if q_pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, q_pad))
+        q_pos = F.pad(q_pos, (0, q_pad), value=-1)
+    k_pad = -Sk % kv_block
+    if k_pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, k_pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, k_pad))
+        k_pos = F.pad(k_pos, (0, k_pad), value=2**30)
+    Sk_p = Sk + k_pad
+
+    def one_q_block(qi: int):
+        q_lo, q_hi = qi * q_block, (qi + 1) * q_block
+        qg = q[:, q_lo:q_hi].reshape(B, q_block, KV, G, dk) * scale
+        qp = q_pos[:, q_lo:q_hi]
+        # static KV range this q block can see (positions are monotone:
+        # q_pos = offset + arange on the train and prefill paths)
+        kv_hi = min(-(-q_hi // kv_block) * kv_block, Sk_p)
+        kv_lo = 0
+        if window:
+            kv_lo = max(0, (q_lo - window) // kv_block * kv_block)
+        m_run = torch.full((B, KV, G, q_block), NEG_INF, dtype=torch.float32,
+                           device=q.device)
+        l_run = torch.zeros((B, KV, G, q_block), dtype=torch.float32,
+                            device=q.device)
+        acc = torch.zeros((B, KV, G, q_block, dv), dtype=torch.float32,
+                          device=q.device)
+        for lo in range(kv_lo, kv_hi, kv_block):
+            kc, vc = k[:, lo:lo + kv_block], v[:, lo:lo + kv_block]
+            pc = k_pos[:, lo:lo + kv_block]
+            logits = torch.einsum("bqkgd,bskd->bkgqs", qg, kc).float()
+            logits = softcap(logits, cap)
+            msk = _mask(qp, pc, window)[:, None, None]
+            logits = logits.masked_fill(~msk, NEG_INF)
+            m_new = torch.maximum(m_run, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p.to(vc.dtype), vc).float()
+            m_run = m_new
+        out = acc / torch.clamp(l_run, min=1e-30)[..., None]
+        return out.permute(0, 3, 1, 2, 4).reshape(B, q_block, H, dv)
+
+    blocks = [one_q_block(i) for i in range((Sq + q_pad) // q_block)]
+    out = torch.cat(blocks, dim=1) if len(blocks) > 1 else blocks[0]
+    return out[:, :Sq].to(v.dtype)
+
+
 def _check_impl(impl: str) -> None:
     if impl not in IMPLS:
         raise ValueError(f"attn impl must be one of {IMPLS}, got {impl!r}")
 
 
 def attention(q, k, v, q_pos, k_pos, *, scale, window=0, cap=0.0,
-              impl="dense"):
+              impl="dense", kv_block=1024, q_block=2048):
     """Full-sequence attention.  ``impl="kernel"`` takes no positions: the
     flash kernel is causal from position 0, which holds for whole-prompt
     prefill, the only caller."""
@@ -99,6 +173,12 @@ def attention(q, k, v, q_pos, k_pos, *, scale, window=0, cap=0.0,
         from repro_torch.kernels import ops as kops
         return kops.flash_attention(q, k, v, scale=scale, window=window,
                                     cap=cap)
+    if impl == "auto":
+        impl = "chunked" if k.shape[1] > AUTO_CHUNKED_ABOVE else "dense"
+    if impl == "chunked":
+        return chunked_attention(q, k, v, q_pos, k_pos, scale=scale,
+                                 window=window, cap=cap, kv_block=kv_block,
+                                 q_block=q_block)
     return dense_attention(q, k, v, q_pos, k_pos, scale=scale, window=window,
                            cap=cap)
 
@@ -124,7 +204,7 @@ def _qkv(p, x, cfg: ModelConfig):
 
 
 def gqa_forward(p, x, positions, cfg: ModelConfig, mixer: str, *,
-                impl="dense"):
+                impl="dense", kv_block=1024, q_block=2048):
     q, k, v = _qkv(p, x, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
@@ -133,7 +213,7 @@ def gqa_forward(p, x, positions, cfg: ModelConfig, mixer: str, *,
         scale=1.0 / np.sqrt(cfg.head_dim),
         window=_window_for(cfg, mixer),
         cap=cfg.attn_softcap,
-        impl=impl,
+        impl=impl, kv_block=kv_block, q_block=q_block,
     )
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), {"k": k, "v": v}
 

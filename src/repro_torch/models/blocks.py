@@ -15,13 +15,25 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import ParamSpec, rms_norm
 
 PORTED_SLOTS = (("attn", "dense"),)
+REMATS = ("none", "block")
 
 
 @dataclass
 class RunConfig:
-    """Runtime (non-architecture) knobs."""
+    """Runtime (non-architecture) knobs: the JAX package's, less the
+    sharding, MoE and dry-run fields, which nothing in the port reads."""
 
-    attn_impl: str = "dense"  # dense | kernel (the counterpart of JAX's pallas)
+    attn_impl: str = "dense"  # dense | chunked | auto | kernel (JAX's pallas)
+    remat: str = "block"  # none | block (recompute each cycle in backward)
+    microbatch: int = 0  # >0: gradient-accumulation microbatch size
+    kv_block: int = 1024  # chunked attention's key block
+    q_block: int = 2048  # chunked attention's query block
+    bf16_grads: bool = False  # mixed precision: grads computed in bf16
+
+    def __post_init__(self):
+        if self.remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, "
+                             f"got {self.remat!r}")
 
 
 def _check_slot(slot: SlotSpec) -> None:
@@ -65,7 +77,7 @@ def _mlp_residual(p, h, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# Forward (full sequence: prefill)
+# Forward (full sequence: train / prefill)
 # ---------------------------------------------------------------------------
 
 
@@ -75,7 +87,8 @@ def slot_forward(p, h, positions, cfg: ModelConfig, slot: SlotSpec,
     _check_slot(slot)
     u = rms_norm(h, p["mixer_norm"], cfg.norm_eps)
     u, cache = attn.gqa_forward(p["mixer"], u, positions, cfg, slot.mixer,
-                                impl=run.attn_impl)
+                                impl=run.attn_impl, kv_block=run.kv_block,
+                                q_block=run.q_block)
     if cfg.use_post_norm:
         u = rms_norm(u, p["mixer_post_norm"], cfg.norm_eps)
     return _mlp_residual(p, h + u, cfg), cache, 0.0

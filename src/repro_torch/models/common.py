@@ -1,5 +1,6 @@
 """Shared model machinery: ParamSpec trees (the single source of truth for
-shapes and init), norms, rope, softcap — the port of ``repro.models.common``.
+shapes and init), norms, rope, softcap, the masked cross-entropy — the port
+of ``repro.models.common``.
 
 A model's ``*_specs(config)`` returns a nested dict whose leaves are
 :class:`ParamSpec`; :func:`materialize` turns it into a dict of tensors of
@@ -67,6 +68,17 @@ def tree_map(fn: Callable, tree):
     """Apply ``fn`` to every leaf of a nested dict."""
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
+
+
+def tree_unflatten(items) -> dict:
+    """Nested dict from (path, leaf) pairs, the inverse of :func:`tree_items`."""
+    out: dict = {}
+    for path, leaf in items:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
 
 
 def path_str(path: Tuple[str, ...]) -> str:
@@ -152,3 +164,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor, logit_cap: float = 0.0) -> torch.Tensor:
+    """Mean CE over mask. logits (..., V) cast to fp32 inside; labels int."""
+    logits = softcap(logits.float(), logit_cap)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (logz - gold) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)

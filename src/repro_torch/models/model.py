@@ -1,14 +1,16 @@
 """Top-level decoder (the port of ``repro.models.model``): token embedding,
-the block stack, the LM head, and the two serving entry points
+the block stack, the LM head, the loss, and the three entry points
 
   * ``forward``      — full-sequence logits (+ prefill caches)
+  * ``loss_fn``      — masked next-token cross-entropy (training)
   * ``decode_step``  — single-token cached decoding
 
 Parameters for slot ``i`` are stacked over ``num_cycles`` (dim 0), as in
-JAX; JAX's ``lax.scan`` over cycles is a Python loop over that dim here.
-Chunked prefill (``extend_step``), the training loss, multi-codebook and
-image-prefix embeddings and ``first_k_dense`` preludes are not ported yet
-(ROADMAP A3, A10, A11).
+JAX; JAX's ``lax.scan`` over cycles is a Python loop over that dim here,
+and ``remat="block"`` recomputes each cycle in the backward pass
+(``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` of the cycle).
+Chunked prefill (``extend_step``), multi-codebook models and
+``first_k_dense`` preludes are not ported yet (ROADMAP A10, A11).
 """
 from __future__ import annotations
 
@@ -16,12 +18,13 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import (RunConfig, slot_cache_specs,
                                        slot_decode, slot_forward, slot_specs)
-from repro_torch.models.common import (ParamSpec, rms_norm, softcap,
-                                       torch_dtype, tree_map)
+from repro_torch.models.common import (ParamSpec, cross_entropy, rms_norm,
+                                       softcap, torch_dtype, tree_map)
 
 
 def _check_config(cfg: ModelConfig) -> None:
@@ -72,10 +75,9 @@ def cache_specs(cfg: ModelConfig, batch: int, s_max: int,
 
 
 def embed_tokens(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    if "image_embeds" in batch:
-        raise NotImplementedError("image-prefix inputs are not ported yet "
-                                  "(ROADMAP A11)")
     h = params["embed"][batch["tokens"]]
+    if "image_embeds" in batch:  # (B, n_img, D) prefix before the text
+        h = torch.cat([batch["image_embeds"].to(h.dtype), h], dim=1)
     if cfg.scale_embed:
         h = h * np.sqrt(cfg.d_model)
     return h.to(torch_dtype(cfg.dtype))
@@ -93,10 +95,11 @@ def lm_logits(params, h, cfg: ModelConfig):
 def cast_params(params, cfg: ModelConfig):
     """Compute-dtype parameters: every float32 leaf cast to ``cfg.dtype``.
 
-    JAX casts its fp32 masters on every call; the serving engines call this
-    once at load time and keep no fp32 copy (the values are identical).
-    ``forward``/``decode_step`` call it too, which costs nothing for
-    parameters already cast."""
+    JAX casts its fp32 masters on every call.  Training does the same:
+    ``forward`` casts inside the autograd graph each step, so the gradients
+    land on the fp32 masters.  The serving engines call this once at load
+    time and keep no fp32 copy (the values are identical); ``forward`` and
+    ``decode_step`` then cost nothing for parameters already cast."""
     dt = torch_dtype(cfg.dtype)
     return tree_map(lambda a: a.to(dt) if a.dtype == torch.float32 else a,
                     params)
@@ -107,8 +110,17 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _layers(tree, n: int):
+    """All ``n`` cycles of a tree of stacked tensors, as views.  One
+    ``unbind`` per leaf, whose backward stacks the cycles' gradients once
+    (a per-cycle ``a[i]`` would add a full-size zero-padded gradient per
+    cycle)."""
+    per_leaf = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda xs: xs[i], per_leaf) for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 
@@ -122,12 +134,23 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
     slot_names = [f"slot{i}" for i in range(len(cfg.pattern))]
-    per_cycle = []
-    for i in range(main_cycles(cfg)):
+
+    def cycle(h, layer):
         caches = {}
         for n, slot in zip(slot_names, cfg.pattern):
-            h, caches[n], _ = slot_forward(_layer(params["slots"][n], i), h,
-                                           positions, cfg, slot, run)
+            h, caches[n], _ = slot_forward(layer[n], h, positions, cfg, slot,
+                                           run)
+        return h, caches
+
+    # remat only where there is a backward to recompute for (training)
+    remat = run.remat == "block" and h.requires_grad and not with_cache
+    per_cycle = []
+    for layer in _layers(params["slots"], main_cycles(cfg)):
+        if remat:
+            h = checkpoint(lambda x, lp=layer: cycle(x, lp)[0], h,
+                           use_reentrant=False, preserve_rng_state=False)
+            continue
+        h, caches = cycle(h, layer)
         if with_cache:
             per_cycle.append(caches)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
@@ -137,6 +160,23 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     stacked = {n: {k: torch.stack([c[n][k] for c in per_cycle])
                    for k in per_cycle[0][n]} for n in slot_names}
     return logits, {"slots": stacked}, 0.0
+
+
+def loss_fn(params, batch, cfg: ModelConfig, run: RunConfig,
+            aux_weight: float = 0.01):
+    """Masked next-token CE. ``labels`` < 0 are ignored. For image-prefix
+    inputs the prefix positions carry no labels (the labels are padded
+    with -1 in front).  Returns (loss, {"ce", "aux"})."""
+    logits, _, aux = forward(params, batch, cfg, run)
+    labels = batch["labels"]
+    if "image_embeds" in batch:
+        n_img = batch["image_embeds"].shape[1]
+        pad = labels.new_full(labels.shape[:1] + (n_img,) + labels.shape[2:],
+                              -1)
+        labels = torch.cat([pad, labels], dim=1)
+    mask = (labels >= 0).float()
+    ce = cross_entropy(logits, torch.clamp(labels, min=0), mask)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,143 @@
+"""Instrumented training loop (the port of ``repro.train.loop``): the
+paper's Fig.-1 pipeline made executable.
+
+Each iteration measures the steps: data load / prep / h2d come from the
+``PrefetchLoader``; the ``step`` span times the train step, and a step
+callable may split its own distributed and parameter-update phases out of
+it (``t_comm`` / ``t_update`` in its metrics, as the data-parallel trainer
+does).  On a card, each span ends after a device synchronize, so its wall
+clock is the measurement, not the enqueue.  The loop emits ``StepTimes``
+so R_O (Lemma 3.1) is evaluated on real timings.
+
+Checkpointing (``ckpt_dir``) is not ported yet and raises.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.pipeline import STEP_NAMES, StepTimes
+from repro_torch.data.pipeline import Placement, PrefetchLoader
+from repro_torch.launch.steps import build_train_step
+from repro_torch.models import model as M
+from repro_torch.models.blocks import RunConfig
+from repro_torch.models.common import materialize, resolve_device
+from repro_torch.obs.trace import Tracer, monotonic
+from repro_torch.optim import adamw as opt_lib
+
+
+@dataclass
+class TrainResult:
+    losses: List[float]
+    step_times: List[StepTimes]
+    tokens_per_s: float
+    start_step: int = 0
+
+    @property
+    def mean_r_o(self) -> float:
+        ros = [t.r_o() for t in self.step_times[2:]]
+        return float(np.mean(ros)) if ros else 0.0
+
+    def summary(self) -> Dict[str, Any]:
+        """The measured block of a report: loss trajectory, throughput,
+        R_O, and steady-state (warmup-excluded) means of every Fig.-1
+        step."""
+        steady = self.step_times[2:] or self.step_times
+        means = {name: float(np.mean([getattr(t, name) for t in steady]))
+                 for name in STEP_NAMES} if steady else {}
+        head, tail = self.losses[:5], self.losses[-5:]
+        return {
+            "steps": len(self.losses),
+            "start_step": int(self.start_step),
+            "loss_first": float(np.mean(head)) if head else float("nan"),
+            "loss_last": float(np.mean(tail)) if tail else float("nan"),
+            "losses": [float(l) for l in self.losses],
+            "tokens_per_s": float(self.tokens_per_s),
+            "r_o": self.mean_r_o,
+            "step_times_mean": means,
+        }
+
+
+def sync_devices(devices) -> None:
+    """Wait for every card among ``devices`` (no-op for the CPU)."""
+    for d in {torch.device(d) for d in devices}:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def train(cfg: ModelConfig, run: RunConfig, opt: opt_lib.OptConfig, *,
+          batch: int, seq: int, steps: int, seed: int = 0,
+          device: Placement = "cuda",
+          loader: Optional[PrefetchLoader] = None,
+          ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
+          log_every: int = 10, params=None, opt_state=None,
+          step_fn: Optional[Callable] = None,
+          tracer: Optional[Tracer] = None) -> TrainResult:
+    """Train for ``steps`` steps on ``device`` (``cuda`` unless the caller
+    asks for ``cpu``; a list of devices places one batch shard on each,
+    for a ``step_fn`` that runs one rank per device).
+
+    ``step_fn`` (optional) replaces the default train step
+    (``launch.steps.build_train_step``) with a caller-built executor, e.g.
+    ``repro_torch.distributed.DataParallelTrainer``'s phase-split step.  It
+    may attach host-side phase timings to its metrics as plain floats
+    under ``t_comm`` / ``t_update``; they are split out of compute into
+    ``StepTimes.dist_update`` / ``.param_update``.  ``tracer`` wraps every
+    iteration in a ``step`` span and the loader wait in ``data_wait``; a
+    missing or disabled tracer is replaced by a private enabled one, since
+    the span wall clock is the compute measurement."""
+    if ckpt_dir:
+        raise NotImplementedError(
+            "checkpointing is not ported yet (ROADMAP A12, "
+            "checkpoint/{io,manager}.py)")
+    if tracer is None or not tracer.enabled:
+        tracer = Tracer(enabled=True)
+    devices = list(device) if isinstance(device, (list, tuple)) else [device]
+    devices = [resolve_device(d) for d in devices]
+    if params is None:
+        params = materialize(M.model_specs(cfg), seed, devices[0])
+    if opt_state is None:
+        opt_state = opt_lib.init_state(opt, params)
+
+    own_loader = loader is None
+    if loader is None:
+        loader = PrefetchLoader(cfg, batch, seq, device=device, seed=seed)
+    if step_fn is None:
+        step_fn = build_train_step(cfg, run, opt)
+
+    losses: List[float] = []
+    times: List[StepTimes] = []
+    sync_devices(devices)
+    t_start = monotonic()
+    try:
+        for i in range(steps):
+            with tracer.span("data_wait", step=i):
+                dev_batch, bt = next(loader)
+            with tracer.span("step", step=i) as sp:
+                params, opt_state, metrics = step_fn(params, opt_state,
+                                                     dev_batch)
+                loss = float(metrics["loss"])
+                sync_devices(devices)
+            t_comp = sp.elapsed_s
+            t_comm = float(metrics.pop("t_comm", 0.0))
+            t_upd = float(metrics.pop("t_update", 0.0))
+            losses.append(loss)
+            times.append(StepTimes(
+                data_load=bt.data_load, data_prep=bt.data_prep, h2d=bt.h2d,
+                compute=max(t_comp - t_comm - t_upd, 0.0),
+                param_update=t_upd, dist_update=t_comm))
+            if log_every and (i % log_every == 0 or i == steps - 1):
+                print(f"  step {i:4d} loss {loss:.4f} "
+                      f"compute {t_comp*1e3:.0f}ms io "
+                      f"{(bt.data_load+bt.data_prep+bt.h2d)*1e3:.0f}ms",
+                      flush=True)
+    finally:
+        if own_loader:
+            loader.close()
+    wall = monotonic() - t_start
+    tokens = steps * batch * seq
+    return TrainResult(losses, times, tokens / max(wall, 1e-9), 0)

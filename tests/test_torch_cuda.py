@@ -223,3 +223,150 @@ def test_ssd_kernel_matches_plain_version(cuda):
                                        atol=1e-3,
                                        msg=lambda m: f"{case} {key}: {m}")
         assert torch.equal(got["y"], y) and torch.equal(got["h"], h), case
+
+
+# ---------------------------------------------------------------------------
+# Training on the card: no kernel under autograd; the step against the CPU's
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_autograd_on_card(cuda):
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ssd_scan as ssd_k
+
+    def bf(*shape):
+        return torch.randn(*shape, device=cuda).to(torch.bfloat16)
+
+    pos = torch.tensor([5, 9], dtype=torch.int32, device=cuda)
+    table = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=cuda)
+    cases = [
+        (fa_k.flash_attention, (bf(2, 4, 9, 64), bf(2, 2, 9, 64),
+                                bf(2, 2, 9, 64)), dict(scale=0.125)),
+        (dec_k.decode_attention, (bf(2, 4, 64), bf(2, 2, 12, 64),
+                                  bf(2, 2, 12, 64), pos), dict(scale=0.125)),
+        (dec_k.paged_decode_attention, (bf(2, 4, 64), bf(4, 2, 16, 64),
+                                        bf(4, 2, 16, 64), table, pos),
+         dict(scale=0.125)),
+        (ssd_k.ssd_scan, (bf(1, 2, 64, 32), bf(1, 2, 64).abs(),
+                          -torch.rand(2, device=cuda), bf(1, 64, 16),
+                          bf(1, 64, 16)), dict(chunk=32)),
+    ]
+    for fn, args, kw in cases:
+        grad_args = [a.clone().requires_grad_() if a.is_floating_point()
+                     else a for a in args]
+        before = fn.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(*grad_args, **kw)
+        assert fn.launches == before
+        with torch.no_grad():
+            fn(*grad_args, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+
+
+def _smooth_params(cfg, device):
+    """Random fp32 params (seed 0) with the attention projections rescaled
+    to std 1/sqrt(fan-in of the whole product): JAX's init makes the
+    softmax nearly one-hot, which amplifies rounding differences through
+    the stack (chip_smoke.py's reference check does the same)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.common import materialize
+
+    p = materialize(M.model_specs(cfg), 0, device)
+    D, H, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    mix = p["slots"]["slot0"]["mixer"]
+    for name, f in (("wq", (H / D) ** 0.5), ("wk", (KV / D) ** 0.5),
+                    ("wv", (KV / D) ** 0.5), ("wo", H ** -0.5)):
+        mix[name].mul_(f)
+    return p
+
+
+def _assert_trees_close(got, want, tol):
+    from repro_torch.models.common import path_str, tree_items
+
+    for (path, g), (_, w) in zip(tree_items(got), tree_items(want)):
+        err = (g.float().cpu() - w.float().cpu()).abs().max().item()
+        bound = tol + tol * w.float().abs().max().item()
+        assert err <= bound, f"{path_str(path)}: {err} > {bound}"
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step (auto attention, block remat, AdamW) of a 2-layer
+    fp32 granite on the card against the same step on the CPU, TF32 off:
+    loss, grad_norm and every gradient within fp32 2e-4; the updated
+    params too, except where the clipped gradient is below 100 * eps,
+    where AdamW's first direction g / (|g| + eps) turns on ~1e-8 of
+    rounding and the step can move an element by up to 2 * lr (held to
+    that plus 2e-4 for the update's own rounding)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import build_grad_fn
+    from repro_torch.models.blocks import RunConfig
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.optim.adamw import OptConfig, apply_updates, init_state
+
+    cfg = get_config("granite-3-2b").reduced().replace(num_layers=2,
+                                                       dtype="float32")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        p_cpu = _smooth_params(cfg, "cpu")
+        p_gpu = tree_map(lambda a: a.to(cuda), p_cpu)
+        toks = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (4, 64)).astype(np.int32)
+        opt = OptConfig(lr=1e-3, warmup_steps=0)
+        grads_of = build_grad_fn(cfg, RunConfig(attn_impl="auto",
+                                                remat="block"))
+        out = {}
+        for name, p, dev in (("cpu", p_cpu, "cpu"), ("gpu", p_gpu, cuda)):
+            t = torch.from_numpy(toks).to(dev)
+            loss, _, g = grads_of(p, {"tokens": t, "labels": t})
+            _, _, gnorm = apply_updates(opt, p, g, init_state(opt, p))
+            out[name] = (loss.item(), gnorm.item(), g)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for k in (0, 1):
+        want = out["cpu"][k]
+        assert abs(out["gpu"][k] - want) <= 2e-4 + 2e-4 * abs(want)
+    _assert_trees_close(out["gpu"][2], out["cpu"][2], 2e-4)
+    scale = min(1.0, opt.grad_clip / out["cpu"][1])
+    for (path, g), (_, w), (_, gr) in zip(tree_items(p_gpu),
+                                          tree_items(p_cpu),
+                                          tree_items(out["cpu"][2])):
+        d = (g.cpu() - w).abs()
+        tiny = (gr * scale).abs() < 100 * 1e-8
+        assert bool((d[~tiny] <= 2e-4 + 2e-4 * w.abs().max()).all()), path
+        assert bool((d[tiny] <= 2 * opt.lr + 2e-4).all()), path
+
+
+@pytest.mark.gpu
+def test_data_parallel_trainer_over_nccl_matches_the_loop(cuda):
+    """The trainer at dp = 1 (all_reduce over NCCL) against the
+    single-device loop from the same params and loader seed."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.trainer import DataParallelTrainer
+    from repro_torch.models.blocks import RunConfig
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.loop import train
+
+    cfg = get_config("granite-3-2b").reduced().replace(num_layers=2)
+    run = RunConfig(attn_impl="auto", remat="block")
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=3)
+    p0 = _smooth_params(cfg, cuda)
+    p_loop = tree_map(torch.clone, p0)
+    res = train(cfg, run, opt, batch=4, seq=64, steps=3, device=cuda,
+                params=p_loop, log_every=0)
+    tr = DataParallelTrainer(cfg, run, opt, strategy="all_reduce",
+                             devices=[cuda])
+    try:
+        res_dp = tr.train(batch=4, seq=64, steps=3, params=p0, log_every=0)
+    finally:
+        tr.close()
+    np.testing.assert_allclose(res_dp.losses, res.losses, rtol=2e-4,
+                               atol=2e-4)
+    _assert_trees_close(tr.params[0], p_loop, 2e-4)
+    rep = tr.report()
+    assert rep.dp == 1 and rep.predicted_comm_s == 0.0
