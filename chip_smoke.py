@@ -81,6 +81,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
    DataParallelTrainer with all_reduce over NCCL at dp = 1 (4 layers, 3
    steps) against the loop from the same params (same limit), with its
    SyncReport.  Both use attention-smoothed weights (as phase 4).
+9. processes and overlap — no kernel launches either: (1) the one-rank
+   DataParallelTrainer (rank 0 of 1, over NCCL on a TCPStore in this
+   process: what each torchrun process builds) from phase 8's params and
+   seed, 3 steps, bitwise equal to phase 8's threaded dp = 1 trainer; (2)
+   the training launcher under torchrun --standalone --nproc-per-node 1
+   (granite-3-2b reduced, --dp 1, 3 steps) as a child with a 300 s limit:
+   it must exit 0 with a report that holds a sync section; (3) the
+   overlapped trainer (2 serial-bucketed calibration steps, 2 fused) at
+   full width and 4 layers, 4 steps, bitwise equal to the serial trainer;
+   it prints the buckets, the overlap fraction, exposed against serial
+   comm and the SyncReport priced on the H100 node's NVLink tier.
 
 Then it prints the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line, and, last, the
@@ -90,6 +101,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -794,6 +806,7 @@ def train_phase(torch, wrappers) -> None:
     if not ok or max(abs(a - b) for a, b in zip(res_dp.losses, res.losses)) \
             > FP32_TOL + FP32_TOL * max(map(abs, res.losses)):
         fail("the dp = 1 trainer and the loop disagree")
+    threaded = tr.params[0]
     del tr, p0, p_loop
     torch.cuda.empty_cache()
     moved = {name: fn.launches for name, fn in wrappers.items()
@@ -801,6 +814,136 @@ def train_phase(torch, wrappers) -> None:
     if moved:
         fail(f"the training path launched kernels: {moved}")
     print("[train] no kernel launched on the training path", flush=True)
+    return threaded
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def procs_phase(torch, wrappers, threaded) -> None:
+    """Phase 9: processes and overlap (see the module docstring)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.trainer import DataParallelTrainer
+    from repro_torch.models import model as M
+    from repro_torch.models.common import materialize, tree_items
+    from repro_torch.models.blocks import RunConfig
+    from repro_torch.optim.adamw import OptConfig
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    cfg = get_config("granite-3-2b").replace(num_layers=4)
+    run = RunConfig(attn_impl="auto", remat="block")
+
+    def fresh():  # phase 8.3's params, optimizer and run
+        return (smooth_attention(materialize(M.model_specs(cfg), 0, "cuda"),
+                                 cfg),
+                OptConfig(lr=1e-3, warmup_steps=1, total_steps=3))
+
+    def bitwise(a, b):
+        return all(torch.equal(x, y) for (_, x), (_, y)
+                   in zip(tree_items(a), tree_items(b)))
+
+    # 9.1: the one-rank trainer a torchrun process builds, in this process
+    p0, opt = fresh()
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True,
+                          timeout=timedelta(seconds=120))
+    tr = DataParallelTrainer(cfg, run, opt, strategy="all_reduce",
+                             devices=["cuda:0"], rank=0, world=1, store=store)
+    t0 = time.perf_counter()
+    try:
+        res = tr.train(batch=4, seq=512, steps=3, params=p0, log_every=0)
+        rep = tr.report().as_dict()
+        # the first barrier also sets up the NCCL communicator
+        barrier = [e.dur_s for e in tr.tracer.events("barrier")][1:]
+    finally:
+        tr.close()
+    same = bitwise(tr.params[0], threaded)
+    print(f"[procs] one-rank trainer (rank 0 of 1, NCCL on a TCPStore), "
+          f"granite-3-2b full width, 4 layers, 3 steps: losses "
+          f"{res.losses}; params bitwise equal to phase 8's threaded dp = 1 "
+          f"trainer: {same}; compute barrier "
+          f"{[round(b * 1e3, 3) for b in barrier]} ms in steps 1-2; "
+          f"{time.perf_counter() - t0:.1f} s",
+          flush=True)
+    print(f"[procs] sync report {json.dumps(rep)}", flush=True)
+    if not same:
+        fail("the one-rank trainer and the threaded dp = 1 trainer differ")
+    del tr, p0, threaded, store
+    torch.cuda.empty_cache()
+
+    # 9.2: the launcher under torchrun, one process on this card
+    root = Path(__file__).resolve().parent
+    out = root / "build" / "chip_smoke" / "torchrun_report.json"
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+           "--arch", "granite-3-2b", "--device", "cuda", "--dp", "1",
+           "--sync", "all_reduce", "--steps", "3", "--batch", "4",
+           "--seq", "128", "--report-out", str(out)]
+    t0 = time.perf_counter()
+    try:
+        child = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                               timeout=300)
+    except subprocess.TimeoutExpired:
+        fail("the torchrun child did not finish in 300 s")
+    wall = time.perf_counter() - t0
+    if child.returncode != 0:
+        fail(f"torchrun exited {child.returncode}: "
+             f"{(child.stdout + child.stderr)[-3000:]}")
+    try:
+        rep = json.loads(out.read_text())["measured"]["sync"]
+    except (OSError, ValueError, KeyError) as e:
+        fail(f"the torchrun child's report does not parse: {e!r}")
+    print(f"[procs] torchrun --standalone --nproc-per-node 1 -m "
+          f"repro_torch.launch.train (granite-3-2b reduced, --dp 1, 3 steps) "
+          f"exited 0 in {wall:.1f} s; its report's sync: dp {rep['dp']}, "
+          f"measured_comm_s {rep['measured_comm_s']:.6f}, link_bw "
+          f"{rep['link_bw']:.3e}", flush=True)
+
+    # 9.3: overlapped against serial, dp = 1, 4 steps
+    params = {}
+    for overlap in (False, True):
+        p0, opt = fresh()
+        opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+        tr = DataParallelTrainer(cfg, run, opt, strategy="all_reduce",
+                                 devices=["cuda:0"], sync_overlap=overlap)
+        try:
+            tr.train(batch=4, seq=512, steps=4, params=p0, log_every=0)
+            rep = tr.report()
+        finally:
+            tr.close()
+        params[overlap] = tr.params[0]
+        del tr, p0
+    same = bitwise(params[True], params[False])
+    print(f"[procs] overlapped all_reduce, dp 1, 4 layers, 4 steps (2 "
+          f"calibration + 2 fused): {rep.n_buckets} buckets of "
+          f"{rep.bucket_mb} MiB; overlap_fraction {rep.overlap_fraction:.4f}, "
+          f"exposed {rep.exposed_comm_time * 1e3:.3f} ms of "
+          f"{rep.measured_comm_s * 1e3:.3f} ms serial comm; params bitwise "
+          f"equal to the serial trainer's: {same}", flush=True)
+    print(f"[procs] overlap sync report (priced at {rep.link_bw:.3e} B/s, "
+          f"the H100 node's NVLink tier) {json.dumps(rep.as_dict())}",
+          flush=True)
+    if not same:
+        fail("the overlapped and the serial trainer differ")
+    del params
+    torch.cuda.empty_cache()
+    moved = {name: fn.launches for name, fn in wrappers.items()
+             if fn.launches}
+    if moved:
+        fail(f"phase 9 launched kernels: {moved}")
 
 
 def main() -> None:
@@ -983,11 +1126,15 @@ def main() -> None:
         launches[kernel] = tuned[kernel]
 
     # 8. train -----------------------------------------------------------------
-    train_phase(torch, {
+    wrappers = {
         "flash_attention": fa_k.flash_attention,
         "decode_attention": dec_k.decode_attention,
         "paged_decode_attention": dec_k.paged_decode_attention,
-        "ssd_scan": ssd_k.ssd_scan})
+        "ssd_scan": ssd_k.ssd_scan}
+    threaded = train_phase(torch, wrappers)
+
+    # 9. processes and overlap ---------------------------------------------------
+    procs_phase(torch, wrappers, threaded)
 
     leaked = sorted(n for n in sys.modules
                     if n.split(".")[0] in ("jax", "jaxlib", "repro"))

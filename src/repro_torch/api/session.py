@@ -2,7 +2,9 @@
 ``repro.api.session``; ``train``, ``bench`` and ``serve``).
 
 ``Session.train()`` runs the training loop on the session's device
-(``spec.dp == 0``) or the data-parallel trainer on ``spec.dp`` ranks, with
+(``spec.dp == 0``) or the data-parallel trainer on ``spec.dp`` ranks (one
+thread each, or, in a process ``torchrun`` started, this process's rank:
+``cuda:LOCAL_RANK`` on the job's ``TCPStore``), with
 the JAX package's run configuration when the planner is off
 (``RunConfig(attn_impl="auto", remat="block")``, AdamW with a tenth of the
 steps as warmup).  ``bench`` is the same run reported as ``bench``.
@@ -132,10 +134,6 @@ class Session:
             raise NotImplementedError(
                 "staleness/backup_workers: the async parameter server "
                 "(distributed/async_ps.py) is not ported yet (ROADMAP Next 2)")
-        if spec.sync_overlap:
-            raise NotImplementedError(
-                "sync_overlap: bucketed overlap (distributed/overlap.py) is "
-                "not ported yet (ROADMAP Next 1)")
         if spec.ckpt_dir:
             raise NotImplementedError(
                 "ckpt_dir: checkpointing (checkpoint/{io,manager}.py) is not "
@@ -157,9 +155,44 @@ class Session:
             raise RuntimeError(f"dp={dp} but only {n} devices visible")
         return [torch.device("cuda", i) for i in range(dp)]
 
-    def _run_train(self, kind: str) -> Report:
+    def _trainer(self, run, opt, tracer, metrics):
+        """The data-parallel trainer for ``spec.dp`` ranks: under
+        ``torchrun``, this process's one rank (``cuda:LOCAL_RANK``, or the
+        CPU when the session runs there) on the job's ``TCPStore``;
+        otherwise every rank, one thread each."""
         from repro_torch.core.hardware import get_cluster
-        from repro_torch.distributed.trainer import DataParallelTrainer
+        from repro_torch.distributed.overlap import DEFAULT_BUCKET_MB
+        from repro_torch.distributed.trainer import (DataParallelTrainer,
+                                                     torchrun_env,
+                                                     torchrun_store)
+
+        spec = self.spec
+        kw = dict(strategy=spec.sync, compression=spec.compress,
+                  topology=(get_cluster(spec.topology) if spec.topology
+                            else None),
+                  sync_overlap=spec.sync_overlap,
+                  bucket_mb=spec.bucket_mb or DEFAULT_BUCKET_MB,
+                  tracer=tracer, metrics=metrics)
+        env = torchrun_env()
+        if env is None:
+            return DataParallelTrainer(self.cfg, run, opt,
+                                       devices=self._dp_devices(), **kw)
+        if spec.dp != env.world:
+            raise ValueError(f"dp={spec.dp} but torchrun started "
+                             f"WORLD_SIZE={env.world} processes: run one "
+                             "process per rank (--nproc-per-node dp)")
+        dev = self.device
+        if dev.type == "cuda":
+            if env.local_rank >= torch.cuda.device_count():
+                raise RuntimeError(
+                    f"LOCAL_RANK {env.local_rank} but only "
+                    f"{torch.cuda.device_count()} cards visible")
+            dev = torch.device("cuda", env.local_rank)
+        return DataParallelTrainer(self.cfg, run, opt, devices=[dev],
+                                   rank=env.rank, world=env.world,
+                                   store=torchrun_store(env), **kw)
+
+    def _run_train(self, kind: str) -> Report:
         from repro_torch.train.loop import train as train_loop
 
         spec = self.spec
@@ -168,13 +201,10 @@ class Session:
         tracer, metrics = self._make_obs()
         loop_kw = dict(batch=spec.batch, seq=spec.seq, steps=spec.steps,
                        seed=spec.seed, log_every=spec.log_every)
-        sync_rep = None
+        sync_rep, rank = None, None
         if spec.dp:
-            trainer = DataParallelTrainer(
-                self.cfg, run, opt, strategy=spec.sync,
-                compression=spec.compress, devices=self._dp_devices(),
-                topology=get_cluster(spec.topology) if spec.topology else None,
-                tracer=tracer, metrics=metrics)
+            trainer = self._trainer(run, opt, tracer, metrics)
+            rank = trainer.rank
             try:
                 res = trainer.train(**loop_kw)
                 sync_rep = trainer.report()
@@ -199,7 +229,10 @@ class Session:
             measured["sync"] = sync_rep.as_dict()
         measured["metrics"] = metrics.section()
         meta = self.report_meta()
-        meta.update(self._save_trace(kind, tracer))
+        if rank is not None:  # one process per rank: rank 0 writes
+            meta["process"] = {"rank": rank, "world": spec.dp}
+        if not rank:
+            meta.update(self._save_trace(kind, tracer))
         return Report(kind, spec.to_dict(), measured, meta)
 
     # ------------------------------------------------------------------

@@ -8,9 +8,9 @@
   at that tier                                              [s]
 
 The chips are the JAX package's (a TPU v5e-class part and the paper's
-K80); an H100 ``Chip`` and an 8×H100 cluster are ROADMAP A9.  The
-datasheet numbers here describe those chips, not the card the port runs
-on.
+K80) and the card the port runs on, the H100 SXM, with its named
+clusters: one 8-card NVLink node and two such nodes over InfiniBand.
+Every number is a data-sheet number, not a measurement.
 """
 from __future__ import annotations
 
@@ -44,6 +44,20 @@ K80_GK210 = Chip(
     hbm_bw=240e9,
     link_bw=10e9 / 8,  # 10 Gbit Ethernet (p2.8xlarge "network" as PS link)
 )
+
+
+# NVIDIA H100 SXM5 data sheet: dense bf16 tensor-core rate, HBM3, and
+# NVLink 4 at 900 GB/s per card both ways, 450e9 B/s per direction
+H100_SXM = Chip(
+    name="h100-sxm",
+    peak_flops=989e12,  # bf16, dense
+    hbm_bytes=80e9,
+    hbm_bw=3.35e12,
+    link_bw=450e9,
+)
+# NVIDIA DGX H100 data sheet: eight single-port ConnectX-7 NICs at
+# 400 Gb/s (InfiniBand NDR), one per card: 50e9 B/s per card per direction
+H100_IB_BW = 400e9 / 8
 
 
 @dataclass(frozen=True)
@@ -149,7 +163,17 @@ CLUSTERS: Dict[str, ClusterSpec] = {
     "2pod-dcn": ClusterSpec("2pod-dcn", TPU_V5E,
                             (Tier("pod", 256, TPU_V5E.link_bw),
                              Tier("dcn", 2, 25e9))),
+    # one 8 x H100 SXM node (HGX / DGX H100): every card on NVLink
+    "h100-8": ClusterSpec("h100-8", H100_SXM,
+                          (Tier("node", 8, H100_SXM.link_bw),)),
+    # two such nodes, one 400 Gb/s InfiniBand NIC per card between them
+    "h100-2x8": ClusterSpec("h100-2x8", H100_SXM,
+                            (Tier("node", 8, H100_SXM.link_bw),
+                             Tier("cluster", 2, H100_IB_BW))),
 }
+# the cluster the data-parallel trainer prices its sync on when it runs on
+# cards and the caller names neither a topology nor a link bandwidth
+H100_NODE = CLUSTERS["h100-8"]
 
 
 def get_cluster(name: str) -> ClusterSpec:

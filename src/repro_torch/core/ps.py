@@ -1,8 +1,9 @@
 """Lemma 3.2 — parameter-server sizing and the comm-time forms the
-gradient-sync strategies are priced with (a copy of the parts of
-``repro.core.ps`` that ``distributed/collectives.py`` and ``SyncReport``
-call; serving's replica lemma, the staleness model and the planner's
-``SyncPlan`` stay in the JAX package).
+gradient-sync strategies are priced with, and the overlap-aware step
+pricing of bucketed sync (a copy of the parts of ``repro.core.ps`` that
+``distributed/collectives.py``, ``distributed/overlap.py`` and
+``SyncReport`` call; serving's replica lemma, the staleness model and the
+planner's ``SyncPlan`` stay in the JAX package).
 
 Paper form:  N_ps >= 2 * S_p * N_w / (B_ps * T_C).
 Units: S_p and wire bytes in bytes, B_ps / bw in bytes/s, T_C and comm
@@ -82,3 +83,79 @@ def predicted_comm_time(schedule: str, s_p: float, dp: int, link_bw: float,
             tiers = (Tier("flat", dp, link_bw),)
         return hier_comm_time(s_p, tiers)[0]
     raise KeyError(f"unknown schedule {schedule!r}; known: {SCHEDULES}")
+
+
+# ---------------------------------------------------------------------------
+# Overlap-aware step pricing (bucketed comm/compute pipelining)
+# ---------------------------------------------------------------------------
+
+# fraction of the compute step spent in the forward pass under the standard
+# 1:2 fwd:bwd FLOP split (the backward differentiates both matmul operands)
+FWD_FRACTION = 1.0 / 3.0
+
+# Default sync-bucket payload target (MiB) shared by the cost model and the
+# executable bucketing (repro_torch.distributed.overlap imports it from here —
+# core stays import-light and never imports distributed).
+DEFAULT_BUCKET_MB = 4.0
+
+
+def bucket_count(grad_bytes: float, bucket_mb: float) -> int:
+    """Size-level sync-bucket count: ceil(payload / cap).
+
+    The executable leaf-level plan (``repro_torch.distributed.overlap.
+    build_bucket_plan``) packs whole leaves under the same cap, so its
+    bucket count is >= this (unless a single leaf exceeds the cap on its
+    own) — the modeled hideable window ``(n-1)/n`` stays a conservative
+    estimate of the real schedule's granularity."""
+    mb = bucket_mb if bucket_mb > 0 else DEFAULT_BUCKET_MB
+    if grad_bytes <= 0:
+        return 1
+    return max(math.ceil(grad_bytes / (mb * 2.0 ** 20)), 1)
+
+
+def overlap_exposed_comm(t_comm: float, t_bwd: float, n_buckets: int, *,
+                         overlap_efficiency: float = 1.0) -> float:
+    """Comm time left *outside* compute after bucketed overlap [s].
+
+    With ``n_buckets`` dependency-ordered sync buckets, the first bucket's
+    gradients are ready after ~``t_bwd / n_buckets`` of the backward pass,
+    so up to ``t_bwd * (n_buckets - 1) / n_buckets`` of backward compute can
+    hide collectives (Shi et al.'s wait-free backpropagation window).
+    ``overlap_efficiency`` in [0, 1] derates the window to the *achieved*
+    overlap (``SyncReport.overlap_fraction``, calibrated by the autotuner);
+    0 — or a single bucket, whose gradients only complete with the backward
+    itself — degrades exactly to the serial ``t_comm``.
+    """
+    if t_comm <= 0:
+        return 0.0
+    if n_buckets <= 1 or overlap_efficiency <= 0 or t_bwd <= 0:
+        return t_comm
+    window = t_bwd * (n_buckets - 1) / n_buckets
+    window *= min(max(overlap_efficiency, 0.0), 1.0)
+    return max(t_comm - window, 0.0)
+
+
+def overlap_step_time(t_fwd: float, t_bwd: float, t_comm: float,
+                      n_buckets: int, *,
+                      overlap_efficiency: float = 1.0) -> Dict[str, float]:
+    """The overlapped step-time model (units: seconds):
+
+        T_step = T_fwd + max(T_bwd, T_bwd_tail + T_comm * (1 - f) ...)
+               = T_fwd + T_bwd + T_exposed
+
+    where ``T_exposed = max(T_comm - window, 0)`` with the hideable window
+    ``(T_bwd - T_bwd/n) * efficiency`` — comm launched per bucket as its
+    gradients complete, only the residual sticking out past the backward.
+    Returns the breakdown; ``total`` with ``n_buckets <= 1`` or zero
+    efficiency is exactly the serial ``T_fwd + T_bwd + T_comm``.
+    """
+    exposed = overlap_exposed_comm(t_comm, t_bwd, n_buckets,
+                                   overlap_efficiency=overlap_efficiency)
+    hidden = t_comm - exposed
+    return {
+        "t_fwd": t_fwd, "t_bwd": t_bwd, "t_comm": t_comm,
+        "n_buckets": float(max(n_buckets, 1)),
+        "hidden_comm": hidden, "exposed_comm": exposed,
+        "overlap_fraction": hidden / t_comm if t_comm > 0 else 0.0,
+        "total": t_fwd + t_bwd + exposed,
+    }

@@ -16,7 +16,7 @@ import queue
 import threading
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Sequence, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -72,21 +72,31 @@ class PrefetchLoader:
     ``device`` is one device (each value of the batch is a tensor there)
     or a list of devices, one per data-parallel rank: each value is then
     split into equal shards along the batch dim, shard r on device r (the
-    JAX loader's ``sharding`` over the data axis)."""
+    JAX loader's ``sharding`` over the data axis).  ``shard=(r, world)``
+    (one process per rank) splits the global batch into ``world`` shards
+    and yields shard r alone, on the one device of ``device``: the same
+    tokens that shard r of the all-ranks loader gets."""
 
     def __init__(self, cfg: ModelConfig, batch: int, seq: int, *,
                  device: Placement = "cuda",
                  corpus: Optional[SyntheticCorpus] = None, depth: int = 2,
-                 seed: int = 0, skip_batches: int = 0):
+                 seed: int = 0, skip_batches: int = 0,
+                 shard: Optional[Tuple[int, int]] = None):
         self.cfg = cfg
         self.batch = batch
         self.seq = seq
         self.sharded = isinstance(device, (list, tuple))
         devices = list(device) if self.sharded else [device]
         self.devices: List[torch.device] = [resolve_device(d) for d in devices]
-        if batch % len(self.devices):
-            raise ValueError(f"batch {batch} does not split into "
-                             f"{len(self.devices)} equal shards")
+        if shard is not None and (len(self.devices) != 1
+                                  or not 0 <= shard[0] < shard[1]):
+            raise ValueError(f"shard {shard} needs one device and 0 <= rank "
+                             "< world")
+        self.shard = shard
+        n = shard[1] if shard is not None else len(self.devices)
+        if batch % n:
+            raise ValueError(f"batch {batch} does not split into {n} equal "
+                             "shards")
         self.corpus = corpus or SyntheticCorpus(cfg.vocab_size, seed=seed)
         self.skip_batches = int(skip_batches)
         self.q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -158,7 +168,10 @@ class PrefetchLoader:
         n = len(self.devices)
         out = {}
         for k, v in batch.items():
-            shards = np.split(v, n) if self.sharded else [v]
+            if self.shard is not None:
+                shards = [np.split(v, self.shard[1])[self.shard[0]]]
+            else:
+                shards = np.split(v, n) if self.sharded else [v]
             moved = [self._h2d(s, d) for s, d in zip(shards, self.devices)]
             out[k] = moved if self.sharded else moved[0]
         for d in {d for d in self.devices if d.type == "cuda"}:

@@ -3,17 +3,25 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
         [--reduced | --full] [--steps 100] [--batch 8] [--seq 128] \\
         [--dp 2 --sync all_reduce|reduce_scatter_all_gather|parameter_server|hier_all_reduce
-               [--compress none|bf16|int8|topk] [--topology 2x4]] \\
+               [--compress none|bf16|int8|topk] [--topology 2x4]
+               [--overlap --bucket-mb 4]] \\
         [--report-out PATH] [--device cuda]
+
+    # one process per card (or per CPU rank with --device cpu)
+    torchrun --standalone --nproc-per-node N -m repro_torch.launch.train \\
+        --arch granite-3-2b --dp N --sync all_reduce ...
 
 The flags are ``repro.launch.train``'s, mapped 1:1 onto a
 :class:`~repro_torch.api.JobSpec`, plus ``--device`` (default ``cuda``;
 ``cuda`` without a card raises).  ``--dp N`` runs the data-parallel
-trainer on N ranks (``cuda:0..N-1``, or N ranks on the CPU).  Options
-whose modules are not ported (``--plan``, ``--pipe``, ``--staleness``,
-``--backup-workers``, ``--overlap``, ``--autotune``, ``--ckpt-dir``, and
-``--sync auto`` with ``--dp``) raise ``NotImplementedError``.  It prints
-the JAX launcher's summary lines and its JSON last line.
+trainer on N ranks: in one process, one thread each (``cuda:0..N-1``, or
+N ranks on the CPU), or, under ``torchrun`` with N processes, this
+process's rank on ``cuda:LOCAL_RANK`` (``--dp`` must equal WORLD_SIZE);
+then only rank 0 prints and writes the report.  Options whose modules
+are not ported (``--plan``, ``--pipe``, ``--staleness``,
+``--backup-workers``, ``--autotune``, ``--ckpt-dir``, and ``--sync auto``
+with ``--dp``) raise ``NotImplementedError``.  It prints the JAX
+launcher's summary lines and its JSON last line.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from pathlib import Path
 import numpy as np
 
 from repro_torch.api import JobSpec, Session
+from repro_torch.distributed.trainer import torchrun_env
 
 
 def build_spec(args) -> JobSpec:
@@ -76,8 +85,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="gradient compression: none|bf16|int8|topk")
     ap.add_argument("--overlap", action=argparse.BooleanOptionalAction,
                     default=False,
-                    help="bucketed comm/compute overlap (not ported: raises)")
-    ap.add_argument("--bucket-mb", type=float, default=0.0)
+                    help="bucketed comm/compute overlap of the gradient sync "
+                         "(with --dp)")
+    ap.add_argument("--bucket-mb", type=float, default=0.0,
+                    help="sync-bucket size target [MiB] with --overlap "
+                         "(0 = the default, 4)")
     ap.add_argument("--topology", default="",
                     help="named cluster topology (core.hardware.CLUSTERS, "
                          "e.g. 2x4); empty = flat")
@@ -96,15 +108,27 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main():
     args = build_parser().parse_args()
+    env = torchrun_env()
     sess = Session(build_spec(args), device=args.device)
     cfg = sess.cfg
-    print(f"training {cfg.name} ({'reduced' if args.reduced else 'FULL'}) "
-          f"batch={args.batch} seq={args.seq} steps={args.steps} "
-          f"device={sess.device}")
+    lead = env is None or env.rank == 0  # the one process that reports
+    if lead:
+        print(f"training {cfg.name} ({'reduced' if args.reduced else 'FULL'}) "
+              f"batch={args.batch} seq={args.seq} steps={args.steps} "
+              f"device={sess.device}"
+              + (f" ranks={env.world} (one process each)" if env else ""))
     rep = sess.train()
+    if not lead:
+        return
     m = rep.measured
     if "sync" in m:
         print("sync report:", json.dumps(m["sync"], indent=2, default=str))
+        s = m["sync"]
+        if s["sync_overlap"]:
+            print(f"overlap: {s['n_buckets']} buckets hide "
+                  f"{s['overlap_fraction']:.0%} of sync "
+                  f"(exposed {s['exposed_comm_time']*1e3:.1f}ms of "
+                  f"{s['measured_comm_s']*1e3:.1f}ms serial)")
     losses = m["losses"]
     print(f"loss {np.mean(losses[:5]):.4f} -> {np.mean(losses[-5:]):.4f}; "
           f"{m['tokens_per_s']:,.0f} tok/s; R_O={m['r_o']:.4f}")
@@ -119,7 +143,7 @@ def main():
     if args.report_out:
         print(f"wrote {rep.save(args.report_out)}")
     steps = m["step_times_mean"]
-    print(json.dumps({
+    summary = {
         "kind": "train",
         "loss_first": float(np.mean(losses[:5])),
         "loss_last": float(np.mean(losses[-5:])),
@@ -127,7 +151,10 @@ def main():
         "r_o": m["r_o"],
         "step_time_s": steps.get("compute", 0.0)
         + steps.get("dist_update", 0.0) + steps.get("param_update", 0.0),
-    }))
+    }
+    if "sync" in m and m["sync"]["sync_overlap"]:
+        summary["overlap_fraction"] = m["sync"]["overlap_fraction"]
+    print(json.dumps(summary))
 
 
 if __name__ == "__main__":

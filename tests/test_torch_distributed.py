@@ -7,6 +7,7 @@ is needed.  Inputs come from ``np.random.default_rng``; fp32 tolerance
 2e-4 (tests/test_kernels.py), relative to each tensor's scale.
 """
 import threading
+from datetime import timedelta
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +43,7 @@ from repro_torch.optim import adamw as topt
 
 TOL = 2e-4
 INT8_TOL = 5e-2
+TIMEOUT = timedelta(seconds=60)  # a hung rank fails its test
 
 
 def _close(got, want, tol=TOL, what=""):
@@ -68,13 +70,14 @@ def _run_ranks(dp, fn, inner=None):
         try:
             cpu = torch.device("cpu")
             if inner is None:
-                axis = _new_group(dist.PrefixStore("w", store), r, dp, cpu)
+                axis = _new_group(dist.PrefixStore("w", store), r, dp, cpu,
+                                  TIMEOUT)
             else:
                 node, local = divmod(r, inner)
                 in_node = _new_group(dist.PrefixStore(f"n{node}", store),
-                                     local, inner, cpu)
+                                     local, inner, cpu, TIMEOUT)
                 across = _new_group(dist.PrefixStore(f"a{local}", store),
-                                    node, dp // inner, cpu)
+                                    node, dp // inner, cpu, TIMEOUT)
                 axis = (across, in_node)
             out[r] = fn(r, axis)
         except BaseException as e:  # surfaced below, in the test's thread
@@ -200,7 +203,7 @@ def test_trainer_matches_the_single_device_step(baseline, name, dp, topology):
     tr = DataParallelTrainer(tcfg, RunConfig(attn_impl="dense", remat="none"),
                              topt.OptConfig(lr=1e-3, warmup_steps=0),
                              strategy=name, devices=["cpu"] * dp,
-                             topology=topology)
+                             topology=topology, group_timeout=TIMEOUT)
     try:
         res = tr.train(batch=8, seq=16, steps=3, seed=0, log_every=0,
                        params=params_from_numpy(tp_np, tcfg, "cpu"))
@@ -242,7 +245,7 @@ def test_trainer_with_error_feedback_matches_jax_trainer(baseline,
     tr = DataParallelTrainer(tcfg, RunConfig(**run_kw),
                              topt.OptConfig(lr=1e-3, warmup_steps=0),
                              strategy="all_reduce", compression="int8",
-                             devices=["cpu", "cpu"])
+                             devices=["cpu", "cpu"], group_timeout=TIMEOUT)
     try:
         res = tr.train(batch=8, seq=16, steps=3, seed=0, log_every=0,
                        params=params_from_numpy(tp_np, tcfg, "cpu"))
@@ -290,7 +293,7 @@ def test_sync_report_matches_jax(multi_device, name, dp, compression,
         topology=jax_get_cluster(topology) if topology else None, **kw)
     tr = DataParallelTrainer(
         tcfg, RunConfig(attn_impl="dense", remat="none"), topt.OptConfig(),
-        devices=["cpu"] * dp,
+        devices=["cpu"] * dp, group_timeout=TIMEOUT,
         topology=get_cluster(topology) if topology else None, **kw)
     try:
         tr.train(batch=dp, seq=8, steps=3, log_every=0)
@@ -347,7 +350,7 @@ def test_jax_tiers_resolution_is_mirrored(multi_device):
             topology=jax_get_cluster(topology) if topology else None)
         tr = DataParallelTrainer(
             tcfg, RunConfig(), topt.OptConfig(), strategy=tstrat,
-            devices=["cpu"] * dp,
+            devices=["cpu"] * dp, group_timeout=TIMEOUT,
             topology=get_cluster(topology) if topology else None)
         try:
             assert tr.strategy.tiers == jt.strategy.tiers, (dp, topology)
