@@ -4,10 +4,12 @@
 ``Session.train()`` runs the training loop on the session's device
 (``spec.dp == 0``) or the data-parallel trainer on ``spec.dp`` ranks (one
 thread each, or, in a process ``torchrun`` started, this process's rank:
-``cuda:LOCAL_RANK`` on the job's ``TCPStore``), with
-the JAX package's run configuration when the planner is off
+``cuda:LOCAL_RANK`` on the job's ``TCPStore``) — the bounded-staleness
+``AsyncPSTrainer`` when the spec asks for staleness or backup workers —
+with the JAX package's run configuration when the planner is off
 (``RunConfig(attn_impl="auto", remat="block")``, AdamW with a tenth of the
-steps as warmup).  ``bench`` is the same run reported as ``bench``.
+steps as warmup), checkpointing into ``spec.ckpt_dir`` and resuming from
+it.  ``bench`` is the same run reported as ``bench``.
 ``Session.serve()`` runs the spec's serving workload through the static
 ``BatchScheduler`` or the continuous scheduler over the paged KV cache,
 with attention on the hand-written kernels (``attn_impl="kernel"``).
@@ -124,21 +126,19 @@ class Session:
         execution as :meth:`train`, kind ``bench``."""
         return self._run_train("bench")
 
+    @property
+    def is_async(self) -> bool:
+        """The spec runs the bounded-staleness parameter server."""
+        return bool(self.spec.dp and (self.spec.staleness
+                                      or self.spec.backup_workers))
+
     def _check_train_options(self) -> None:
         spec = self.spec
         if spec.pipe > 1:
             raise NotImplementedError(
                 f"pipe={spec.pipe}: 1F1B pipeline parallelism "
                 "(distributed/pipeline.py) is not ported yet (ROADMAP Next 3)")
-        if spec.staleness or spec.backup_workers:
-            raise NotImplementedError(
-                "staleness/backup_workers: the async parameter server "
-                "(distributed/async_ps.py) is not ported yet (ROADMAP Next 2)")
-        if spec.ckpt_dir:
-            raise NotImplementedError(
-                "ckpt_dir: checkpointing (checkpoint/{io,manager}.py) is not "
-                "ported yet (ROADMAP Next 4)")
-        if spec.dp and spec.sync == "auto":
+        if spec.dp and spec.sync == "auto" and not self.is_async:
             raise NotImplementedError(
                 "sync='auto' with dp > 0 resolves the planner's "
                 "sync_schedule (DataParallelTrainer.from_plan); the planner "
@@ -156,27 +156,37 @@ class Session:
         return [torch.device("cuda", i) for i in range(dp)]
 
     def _trainer(self, run, opt, tracer, metrics):
-        """The data-parallel trainer for ``spec.dp`` ranks: under
-        ``torchrun``, this process's one rank (``cuda:LOCAL_RANK``, or the
-        CPU when the session runs there) on the job's ``TCPStore``;
-        otherwise every rank, one thread each."""
+        """The data-parallel trainer for ``spec.dp`` ranks (the
+        ``AsyncPSTrainer`` for an async spec, whose ``sync="auto"`` is the
+        parameter server, as in JAX): under ``torchrun``, this process's
+        one rank (``cuda:LOCAL_RANK``, or the CPU when the session runs
+        there) on the job's ``TCPStore``; otherwise every rank, one thread
+        each."""
         from repro_torch.core.hardware import get_cluster
+        from repro_torch.distributed.async_ps import AsyncPSTrainer
         from repro_torch.distributed.overlap import DEFAULT_BUCKET_MB
         from repro_torch.distributed.trainer import (DataParallelTrainer,
                                                      torchrun_env,
                                                      torchrun_store)
 
         spec = self.spec
-        kw = dict(strategy=spec.sync, compression=spec.compress,
+        kw = dict(compression=spec.compress,
                   topology=(get_cluster(spec.topology) if spec.topology
                             else None),
-                  sync_overlap=spec.sync_overlap,
-                  bucket_mb=spec.bucket_mb or DEFAULT_BUCKET_MB,
                   tracer=tracer, metrics=metrics)
+        if self.is_async:
+            cls = AsyncPSTrainer
+            kw.update(staleness=spec.staleness,
+                      backup_workers=spec.backup_workers,
+                      strategy=("parameter_server" if spec.sync == "auto"
+                                else spec.sync))
+        else:
+            cls = DataParallelTrainer
+            kw.update(strategy=spec.sync, sync_overlap=spec.sync_overlap,
+                      bucket_mb=spec.bucket_mb or DEFAULT_BUCKET_MB)
         env = torchrun_env()
         if env is None:
-            return DataParallelTrainer(self.cfg, run, opt,
-                                       devices=self._dp_devices(), **kw)
+            return cls(self.cfg, run, opt, devices=self._dp_devices(), **kw)
         if spec.dp != env.world:
             raise ValueError(f"dp={spec.dp} but torchrun started "
                              f"WORLD_SIZE={env.world} processes: run one "
@@ -188,9 +198,8 @@ class Session:
                     f"LOCAL_RANK {env.local_rank} but only "
                     f"{torch.cuda.device_count()} cards visible")
             dev = torch.device("cuda", env.local_rank)
-        return DataParallelTrainer(self.cfg, run, opt, devices=[dev],
-                                   rank=env.rank, world=env.world,
-                                   store=torchrun_store(env), **kw)
+        return cls(self.cfg, run, opt, devices=[dev], rank=env.rank,
+                   world=env.world, store=torchrun_store(env), **kw)
 
     def _run_train(self, kind: str) -> Report:
         from repro_torch.train.loop import train as train_loop
@@ -200,14 +209,18 @@ class Session:
         run, opt = self.build_run_opt()
         tracer, metrics = self._make_obs()
         loop_kw = dict(batch=spec.batch, seq=spec.seq, steps=spec.steps,
-                       seed=spec.seed, log_every=spec.log_every)
-        sync_rep, rank = None, None
+                       seed=spec.seed, log_every=spec.log_every,
+                       ckpt_dir=spec.ckpt_dir or None,
+                       ckpt_every=spec.ckpt_every)
+        sync_rep, async_rep, rank = None, None, None
         if spec.dp:
             trainer = self._trainer(run, opt, tracer, metrics)
             rank = trainer.rank
             try:
                 res = trainer.train(**loop_kw)
                 sync_rep = trainer.report()
+                if self.is_async:
+                    async_rep = trainer.async_report()
             finally:
                 trainer.close()
         else:
@@ -227,6 +240,8 @@ class Session:
         metrics.set_gauge("train/r_o", measured["r_o"])
         if sync_rep is not None:
             measured["sync"] = sync_rep.as_dict()
+        if async_rep is not None:
+            measured["async_ps"] = async_rep.as_dict()
         measured["metrics"] = metrics.section()
         meta = self.report_meta()
         if rank is not None:  # one process per rank: rank 0 writes

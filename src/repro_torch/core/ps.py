@@ -1,9 +1,10 @@
 """Lemma 3.2 — parameter-server sizing and the comm-time forms the
-gradient-sync strategies are priced with, and the overlap-aware step
-pricing of bucketed sync (a copy of the parts of ``repro.core.ps`` that
-``distributed/collectives.py``, ``distributed/overlap.py`` and
-``SyncReport`` call; serving's replica lemma, the staleness model and the
-planner's ``SyncPlan`` stay in the JAX package).
+gradient-sync strategies are priced with, the overlap-aware step pricing
+of bucketed sync, and the bounded-staleness / backup-worker step model
+(a copy of the parts of ``repro.core.ps`` that
+``distributed/collectives.py``, ``distributed/overlap.py``,
+``distributed/async_ps.py`` and ``SyncReport`` call; serving's replica
+lemma and the planner's ``SyncPlan`` stay in the JAX package).
 
 Paper form:  N_ps >= 2 * S_p * N_w / (B_ps * T_C).
 Units: S_p and wire bytes in bytes, B_ps / bw in bytes/s, T_C and comm
@@ -158,4 +159,89 @@ def overlap_step_time(t_fwd: float, t_bwd: float, t_comm: float,
         "hidden_comm": hidden, "exposed_comm": exposed,
         "overlap_fraction": hidden / t_comm if t_comm > 0 else 0.0,
         "total": t_fwd + t_bwd + exposed,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Bounded-staleness async PS: Lemma 3.2 with its synchrony assumption relaxed
+# ---------------------------------------------------------------------------
+# Eq. 7 prices ONE pull + ONE push per worker per step.  Bounded staleness
+# (refresh window s) keeps the push every step but amortizes the pull over
+# s+1 steps — each worker re-pulls only when its copy would exceed age s —
+# so the per-step server traffic drops from 2*S_p to S_p*(1 + 1/(s+1)).
+# Backup workers drop the slowest k of dp gradients: the synchronization
+# barrier waits for order statistic (dp-k) instead of dp.  With exponential
+# per-worker delay of mean ``mean_delay`` the expected barrier wait is
+# mean_delay * (H_dp - H_k) (max of dp exponentials minus the k tail terms),
+# so k > 0 shaves exactly the slow tail the paper's §2 taxonomy flags.
+# Staleness is not free: stale gradients dilute progress-per-step, modeled
+# as the standard hyperbolic discount 1/(1 + gamma*s) on statistical
+# efficiency (Hitchhiker's-Guide-style SSP analyses).
+
+# statistical-efficiency discount per unit staleness in 1/(1 + gamma*s);
+# calibrated SSP studies put the knee near s~4-8, gamma 0.05-0.2
+DEFAULT_STALENESS_GAMMA = 0.1
+
+
+def _harmonic(n: int) -> float:
+    """H_n = sum_{i<=n} 1/i (H_0 = 0)."""
+    return sum(1.0 / i for i in range(1, max(n, 0) + 1))
+
+
+def straggler_wait(dp: int, k: int, mean_delay: float) -> float:
+    """Expected barrier wait [s] when the sync waits for dp-k of dp workers
+    whose per-step delays are iid exponential(mean_delay).
+
+    E[max of dp] = mean_delay * H_dp; dropping the slowest k removes the
+    k largest gap terms, leaving mean_delay * (H_dp - H_k).  k = 0 is the
+    full synchronous barrier, k = dp-1 waits only for the fastest worker.
+    """
+    if not 0 <= k < max(dp, 1):
+        raise ValueError(f"need 0 <= k < dp, got k={k} dp={dp}")
+    if dp <= 1 or mean_delay <= 0:
+        return 0.0
+    return mean_delay * (_harmonic(dp) - _harmonic(k))
+
+
+def staleness_efficiency(s: int, gamma: float = DEFAULT_STALENESS_GAMMA) -> float:
+    """Statistical efficiency in (0, 1]: progress per step relative to the
+    synchronous baseline under bounded staleness s (1/(1 + gamma*s);
+    s = 0 is exactly 1)."""
+    if s < 0:
+        raise ValueError(f"staleness must be >= 0, got {s}")
+    return 1.0 / (1.0 + gamma * max(s, 0))
+
+
+def async_step_time(s_p: float, n_w: int, n_ps: int, b_ps: float, t_c: float,
+                    *, staleness: int = 0, backup_workers: int = 0,
+                    mean_delay: float = 0.0,
+                    gamma: float = DEFAULT_STALENESS_GAMMA) -> Dict[str, float]:
+    """T_step(s, k): the bounded-staleness/backup-worker step-time model.
+
+    Per-step PS traffic is ``push + pull/(s+1)`` (push every step, pull
+    amortized over the refresh window); the barrier waits
+    ``straggler_wait(dp, k, mean_delay)``; and ``effective_step`` divides
+    the wall clock by :func:`staleness_efficiency` so plans that trade
+    synchrony for throughput still pay the statistical-progress price.
+    With ``staleness=0, backup_workers=0, mean_delay=0`` the ``io`` term is
+    exactly Eq. 7's :func:`io_time` and the model degenerates to the
+    synchronous lemma.
+    """
+    push = s_p * n_w / (n_ps * b_ps)
+    pull = push / (staleness + 1)
+    wait = straggler_wait(n_w, backup_workers, mean_delay)
+    eff = staleness_efficiency(staleness, gamma)
+    io = push + pull
+    exposed_io = max(io - t_c, 0.0)
+    wall = t_c + exposed_io + wait
+    return {
+        "t_compute": t_c,
+        "io": io,
+        "push": push,
+        "pull": pull,
+        "pull_amortization": 1.0 / (staleness + 1),
+        "straggler_wait": wait,
+        "efficiency": eff,
+        "wall_step": wall,
+        "effective_step": wall / eff,
     }

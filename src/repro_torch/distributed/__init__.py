@@ -1,9 +1,12 @@
 """Executable gradient sync (the port of ``repro.distributed``): the
 strategy zoo (``collectives``), gradient compression (``compression``),
 bucketed comm/compute overlap (``overlap``) and the data-parallel trainer
-(``trainer``), in one process or one process per card.  The async
-parameter server and 1F1B pipelining are not ported yet (ROADMAP Next 2
-and Next 3)."""
+(``trainer``), in one process or one process per card, and the
+bounded-staleness parameter server (``async_ps``).  1F1B pipelining is
+not ported yet (ROADMAP Next 3)."""
+from repro_torch.distributed.async_ps import (  # noqa: F401
+    AsyncPSReport, AsyncPSTrainer,
+)
 from repro_torch.distributed.collectives import (  # noqa: F401
     STRATEGIES, Group, SyncStrategy, flatten_tree, get_strategy,
     unflatten_tree,

@@ -45,7 +45,12 @@ Each rank computes the mean loss over its shard and the strategy returns
 the mean over ranks, so with equal shards the synced gradient is the
 full-batch gradient up to reduction order.
 
-Checkpointing is not ported yet.
+Checkpointing goes through the loop (``train(ckpt_dir=...)``): the
+checkpoint holds the logical tree, the first local rank's replica, and a
+resume restores it into every replica, so a run resumes on any dp.  In
+one-rank mode only rank 0 writes, and every rank resumes from the step
+rank 0 found, which it shares with one all-reduce before the rank's
+loader is built (a rank that cannot read that step raises).
 """
 from __future__ import annotations
 
@@ -61,6 +66,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint import latest_step
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hardware import H100_NODE, ClusterSpec
 from repro_torch.core.pipeline import StepTimes
@@ -514,20 +520,11 @@ class DataParallelTrainer:
         With ``sync_overlap`` the first :data:`N_CALIB_STEPS` steps run the
         serial-bucketed calibration path and every later step the fused
         overlapped one; ``t_comm`` then reports the *exposed* comm only."""
-        strat, comp, dp = self.strategy, self.compressor, self.dp
-
-        def sync(grads, states, i):
-            ef = states[i].get("ef")
-            g, ef = comp.apply(grads[i], ef)
-            if ef is not None:
-                states[i]["ef"] = ef
-            return strat.sync(g, self._axes[i], dp)
-
         def serial(params, opt_state, batch):
             tr = self.tracer
             losses, grads, t_c = self._compute_phase(params, batch)
             with tr.span("dist_update") as sp_s:
-                synced = self._each(lambda i: sync(grads, opt_state, i))
+                synced = self._each(lambda i: self._sync(grads, opt_state, i))
             del grads
             with tr.span("param_update") as sp_u:
                 gnorms = self._each(
@@ -548,6 +545,15 @@ class DataParallelTrainer:
             return fn(params, opt_state, batch)
 
         return step
+
+    def _sync(self, grads, states, i):
+        """Compress + sync local rank i's gradient tree (a stateful
+        compressor's residuals go back into its state)."""
+        ef = states[i].get("ef")
+        g, ef = self.compressor.apply(grads[i], ef)
+        if ef is not None:
+            states[i]["ef"] = ef
+        return self.strategy.sync(g, self._axes[i], self.dp)
 
     def _publish_phases(self, compute_s: float, comm_s: float,
                         update_s: float) -> None:
@@ -713,9 +719,10 @@ class DataParallelTrainer:
         rank takes its 1/dp shard).  ``params`` / ``opt_state`` are one
         tree (replicated, see :meth:`replicate`) or None for a fresh init.
         The final per-rank replicas are kept in ``self.params`` /
-        ``self.opt_states``.  A one-rank trainer logs only on rank 0 and,
-        at the end, all-gathers every rank's steady-state phase means for
-        :meth:`report`."""
+        ``self.opt_states``.  A one-rank trainer logs and checkpoints only
+        on rank 0, resumes every rank from the step rank 0 found in
+        ``ckpt_dir`` and, at the end, all-gathers every rank's steady-state
+        phase means for :meth:`report`."""
         if batch % self.dp:
             raise ValueError(f"batch {batch} not divisible by dp={self.dp} "
                              "(equal shards are required for exact means)")
@@ -725,19 +732,25 @@ class DataParallelTrainer:
             params, states = self.init(seed)
         else:
             params, states = self.replicate(params, opt_state)
-        loader = None
+        loader, start = None, None
         if self.rank is not None:
+            start = 0
+            if ckpt_dir:  # rank 0's newest step, on every rank
+                found = (latest_step(ckpt_dir) or 0) if self.rank == 0 else 0
+                start = int(self.barrier(float(found)))
             loader = PrefetchLoader(self.cfg, batch, seq,
                                     device=self.devices, seed=seed,
-                                    shard=(self.rank, self.dp))
+                                    shard=(self.rank, self.dp),
+                                    skip_batches=start)
             log_every = log_every if self.rank == 0 else 0
+            ckpt_every = ckpt_every if self.rank == 0 else 0
         try:
             res = loop_lib.train(
                 self.cfg, self.run, self.opt, batch=batch, seq=seq,
                 steps=steps, seed=seed, device=self.devices, loader=loader,
                 log_every=log_every, params=params, opt_state=states,
                 step_fn=self.step_fn(), ckpt_dir=ckpt_dir,
-                ckpt_every=ckpt_every, tracer=self.tracer)
+                ckpt_every=ckpt_every, start_step=start, tracer=self.tracer)
         finally:
             if loader is not None:
                 loader.close()

@@ -4,8 +4,9 @@
         [--reduced | --full] [--steps 100] [--batch 8] [--seq 128] \\
         [--dp 2 --sync all_reduce|reduce_scatter_all_gather|parameter_server|hier_all_reduce
                [--compress none|bf16|int8|topk] [--topology 2x4]
-               [--overlap --bucket-mb 4]] \\
-        [--report-out PATH] [--device cuda]
+               [--overlap --bucket-mb 4]
+               [--staleness 2 --backup-workers 1 [--sync auto]]] \\
+        [--ckpt-dir DIR [--ckpt-every 50]] [--report-out PATH] [--device cuda]
 
     # one process per card (or per CPU rank with --device cpu)
     torchrun --standalone --nproc-per-node N -m repro_torch.launch.train \\
@@ -17,11 +18,15 @@ The flags are ``repro.launch.train``'s, mapped 1:1 onto a
 trainer on N ranks: in one process, one thread each (``cuda:0..N-1``, or
 N ranks on the CPU), or, under ``torchrun`` with N processes, this
 process's rank on ``cuda:LOCAL_RANK`` (``--dp`` must equal WORLD_SIZE);
-then only rank 0 prints and writes the report.  Options whose modules
-are not ported (``--plan``, ``--pipe``, ``--staleness``,
-``--backup-workers``, ``--autotune``, ``--ckpt-dir``, and ``--sync auto``
-with ``--dp``) raise ``NotImplementedError``.  It prints the JAX
-launcher's summary lines and its JSON last line.
+then only rank 0 prints, writes the report and the checkpoints.
+``--staleness`` / ``--backup-workers`` (with ``--dp``) run the
+bounded-staleness parameter server (``--sync auto`` is then the
+parameter server); ``--ckpt-dir`` checkpoints every ``--ckpt-every``
+steps (0: 50) and resumes from the newest complete step there.  Options
+whose modules are not ported (``--plan``, ``--pipe``, ``--autotune``, and
+``--sync auto`` with a synchronous ``--dp``) raise
+``NotImplementedError``.  It prints the JAX launcher's summary lines and
+its JSON last line.
 """
 from __future__ import annotations
 
@@ -65,12 +70,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--plan", action="store_true",
                     help="consult the planner (not ported: raises)")
     ap.add_argument("--ckpt-dir", default="",
-                    help="checkpoint directory (not ported: raises)")
-    ap.add_argument("--ckpt-every", type=int, default=0)
+                    help="checkpoint directory: save every --ckpt-every "
+                         "steps, resume from its newest complete step")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="steps between checkpoints (0 = 50 with "
+                         "--ckpt-dir)")
     ap.add_argument("--staleness", type=int, default=0,
-                    help="bounded-staleness async PS (not ported: raises)")
+                    help="bounded-staleness async PS: max worker param age "
+                         "(with --dp)")
     ap.add_argument("--backup-workers", type=int, default=0,
-                    help="backup workers (not ported: raises)")
+                    help="async PS: drop the slowest k of dp gradients per "
+                         "step (with --dp)")
     ap.add_argument("--dp", type=int, default=0,
                     help="run the data-parallel trainer on this many ranks "
                          "(0 = the single-device loop)")
@@ -80,7 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="1F1B microbatches per step")
     ap.add_argument("--sync", default="auto",
                     help="gradient-sync strategy ('auto', the planner's "
-                         "choice, is not ported: name one with --dp)")
+                         "choice, is not ported: name one with a "
+                         "synchronous --dp; with --staleness or "
+                         "--backup-workers it is the parameter server)")
     ap.add_argument("--compress", default="none",
                     help="gradient compression: none|bf16|int8|topk")
     ap.add_argument("--overlap", action=argparse.BooleanOptionalAction,
@@ -129,6 +141,16 @@ def main():
                   f"{s['overlap_fraction']:.0%} of sync "
                   f"(exposed {s['exposed_comm_time']*1e3:.1f}ms of "
                   f"{s['measured_comm_s']*1e3:.1f}ms serial)")
+    if "async_ps" in m:
+        a = m["async_ps"]
+        print(f"async PS: staleness={a['staleness']} "
+              f"(age mean {a['mean_age']:.2f} / max {a['max_age']}), "
+              f"backup_workers={a['backup_workers']} "
+              f"({a['drops']} grads dropped), "
+              f"pull amortized 1/{a['staleness'] + 1}; model wall step "
+              f"{a['t_step_model']['wall_step']*1e3:.3g}ms at "
+              f"{a['t_step_model']['efficiency']:.0%} statistical "
+              f"efficiency")
     losses = m["losses"]
     print(f"loss {np.mean(losses[:5]):.4f} -> {np.mean(losses[-5:]):.4f}; "
           f"{m['tokens_per_s']:,.0f} tok/s; R_O={m['r_o']:.4f}")
@@ -154,6 +176,10 @@ def main():
     }
     if "sync" in m and m["sync"]["sync_overlap"]:
         summary["overlap_fraction"] = m["sync"]["overlap_fraction"]
+    if "async_ps" in m:
+        summary["staleness"] = m["async_ps"]["staleness"]
+        summary["backup_workers"] = m["async_ps"]["backup_workers"]
+        summary["mean_age"] = m["async_ps"]["mean_age"]
     print(json.dumps(summary))
 
 

@@ -9,7 +9,10 @@ does).  On a card, each span ends after a device synchronize, so its wall
 clock is the measurement, not the enqueue.  The loop emits ``StepTimes``
 so R_O (Lemma 3.1) is evaluated on real timings.
 
-Checkpointing (``ckpt_dir``) is not ported yet and raises.
+Checkpointing (``ckpt_dir``) saves the logical training state every
+``ckpt_every`` steps through an async ``CheckpointManager`` and resumes
+from the newest complete step, in the JAX package's format (see
+:func:`train`).
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import (CheckpointManager, latest_step,
+                                    restore_into)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pipeline import STEP_NAMES, StepTimes
 from repro_torch.data.pipeline import Placement, PrefetchLoader
@@ -69,11 +74,35 @@ def sync_devices(devices) -> None:
             torch.cuda.synchronize(d)
 
 
+def _logical(params, opt_state) -> dict:
+    """The tree a checkpoint holds: params and the optimizer state without
+    its ``"ef"`` error-feedback slot, which depends on the rank layout and
+    is kept zero-fresh on resume (JAX's rule)."""
+    return {"params": params,
+            "opt_state": {k: v for k, v in opt_state.items() if k != "ef"}}
+
+
+def _resume(ckpt_dir: str, params, opt_state,
+           step: Optional[int] = None) -> int:
+    """Restore checkpoint ``step`` (the newest when None) into ``params``
+    and ``opt_state`` in place and return its step.  Both are one tree
+    each, or (the data-parallel trainer's replicas) lists of per-rank
+    trees, each of which receives the same logical tree."""
+    reps = (list(zip(params, opt_state)) if isinstance(params, list)
+            else [(params, opt_state)])
+    trees = [_logical(p, s) for p, s in reps]
+    step = restore_into(trees, ckpt_dir, step)
+    for (_, state), tree in zip(reps, trees):
+        state.update(tree["opt_state"])  # the int step comes back new
+    return step
+
+
 def train(cfg: ModelConfig, run: RunConfig, opt: opt_lib.OptConfig, *,
           batch: int, seq: int, steps: int, seed: int = 0,
           device: Placement = "cuda",
           loader: Optional[PrefetchLoader] = None,
           ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
+          start_step: Optional[int] = None,
           log_every: int = 10, params=None, opt_state=None,
           step_fn: Optional[Callable] = None,
           tracer: Optional[Tracer] = None) -> TrainResult:
@@ -89,11 +118,21 @@ def train(cfg: ModelConfig, run: RunConfig, opt: opt_lib.OptConfig, *,
     ``StepTimes.dist_update`` / ``.param_update``.  ``tracer`` wraps every
     iteration in a ``step`` span and the loader wait in ``data_wait``; a
     missing or disabled tracer is replaced by a private enabled one, since
-    the span wall clock is the compute measurement."""
-    if ckpt_dir:
-        raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP A12, "
-            "checkpoint/{io,manager}.py)")
+    the span wall clock is the compute measurement.
+
+    Checkpointing: when ``ckpt_dir`` is set the loop saves the logical
+    training state (``params`` + ``opt_state`` minus ``"ef"``; with a
+    ``step_fn`` over per-rank replicas, the first local rank's) every
+    ``ckpt_every`` steps through an async :class:`CheckpointManager`
+    (``ckpt_every=0`` saves nothing), and AUTO-RESUMES: if a complete
+    checkpoint exists in ``ckpt_dir``, it is restored into every replica
+    in place and training restarts from its step with the loader
+    fast-forwarded, so the resumed losses continue an uninterrupted run,
+    on any number of ranks.  ``start_step`` pins the step to resume from
+    (0: none), for ranks that agreed on it; None takes the newest.  The
+    spans ``ckpt_restore``, ``ckpt_enqueue`` (the host copy a save costs
+    the step) and ``ckpt_write`` (the writer thread's disk time) time the
+    checkpoint work."""
     if tracer is None or not tracer.enabled:
         tracer = Tracer(enabled=True)
     devices = list(device) if isinstance(device, (list, tuple)) else [device]
@@ -103,9 +142,22 @@ def train(cfg: ModelConfig, run: RunConfig, opt: opt_lib.OptConfig, *,
     if opt_state is None:
         opt_state = opt_lib.init_state(opt, params)
 
+    if start_step is None:
+        start_step = (latest_step(ckpt_dir) or 0) if ckpt_dir else 0
+    if start_step:
+        with tracer.span("ckpt_restore", step=start_step):
+            _resume(ckpt_dir, params, opt_state, start_step)
+            sync_devices(devices)
+        print(f"  resuming from checkpoint step {start_step}"
+              + (f" >= steps {steps}; nothing to do" if start_step >= steps
+                 else ""), flush=True)
+    mgr = (CheckpointManager(ckpt_dir, tracer) if ckpt_dir and ckpt_every
+           else None)
+
     own_loader = loader is None
     if loader is None:
-        loader = PrefetchLoader(cfg, batch, seq, device=device, seed=seed)
+        loader = PrefetchLoader(cfg, batch, seq, device=device, seed=seed,
+                                skip_batches=start_step)
     if step_fn is None:
         step_fn = build_train_step(cfg, run, opt)
 
@@ -114,7 +166,7 @@ def train(cfg: ModelConfig, run: RunConfig, opt: opt_lib.OptConfig, *,
     sync_devices(devices)
     t_start = monotonic()
     try:
-        for i in range(steps):
+        for i in range(start_step, steps):
             with tracer.span("data_wait", step=i):
                 dev_batch, bt = next(loader)
             with tracer.span("step", step=i) as sp:
@@ -130,6 +182,10 @@ def train(cfg: ModelConfig, run: RunConfig, opt: opt_lib.OptConfig, *,
                 data_load=bt.data_load, data_prep=bt.data_prep, h2d=bt.h2d,
                 compute=max(t_comp - t_comm - t_upd, 0.0),
                 param_update=t_upd, dist_update=t_comm))
+            if mgr is not None and (i + 1) % ckpt_every == 0:
+                mgr.save(i + 1, _logical(params[0], opt_state[0])
+                         if isinstance(params, list)
+                         else _logical(params, opt_state))
             if log_every and (i % log_every == 0 or i == steps - 1):
                 print(f"  step {i:4d} loss {loss:.4f} "
                       f"compute {t_comp*1e3:.0f}ms io "
@@ -138,6 +194,8 @@ def train(cfg: ModelConfig, run: RunConfig, opt: opt_lib.OptConfig, *,
     finally:
         if own_loader:
             loader.close()
+        if mgr is not None:
+            mgr.close()
     wall = monotonic() - t_start
-    tokens = steps * batch * seq
-    return TrainResult(losses, times, tokens / max(wall, 1e-9), 0)
+    tokens = max(steps - start_step, 0) * batch * seq
+    return TrainResult(losses, times, tokens / max(wall, 1e-9), start_step)

@@ -1,6 +1,7 @@
 """Import guard: the port (``src/repro_torch``) and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``; they keep their own
-copies of what they need.  A static AST scan, so it also covers imports
+neither JAX (nor ``ml_dtypes``, which the card's machine lacks) nor
+anything of the JAX package ``repro``; they keep their own copies of what
+they need.  A static AST scan, so it also covers imports
 inside functions."""
 import ast
 from pathlib import Path
@@ -14,7 +15,7 @@ FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def _imports(path: Path):
@@ -41,4 +42,5 @@ def test_no_jax_or_repro_imports(path):
 def test_scan_sees_every_module():
     assert len(FILES) > 20 and (REPO / "chip_smoke.py").exists()
     assert _forbidden("repro.models") and _forbidden("jax.numpy")
+    assert _forbidden("ml_dtypes")
     assert not _forbidden("repro_torch.models")

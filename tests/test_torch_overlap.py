@@ -375,10 +375,7 @@ def test_trainer_prices_cards_on_nvlink():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(dp=2, sync="all_reduce", staleness=1), "Next 2"),
-    (dict(dp=2, sync="all_reduce", backup_workers=1), "Next 2"),
     (dict(pipe=2), "Next 3"),
-    (dict(ckpt_dir="ckpt"), "Next 4"),
     (dict(use_planner=True), "Next 5"),
     (dict(dp=2), "Next 5"),  # sync="auto" with dp > 0
     (dict(tune=True), "Next 6"),

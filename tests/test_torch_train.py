@@ -568,29 +568,30 @@ def test_session_train_single_device_returns_jax_keys():
 
 @pytest.mark.parametrize("kw", [
     dict(use_planner=True), dict(tune=True), dict(pipe=2),
-    dict(dp=2, sync="all_reduce", staleness=1),
-    dict(dp=2, sync="all_reduce", backup_workers=1),
-    dict(dp=2, sync="all_reduce", ckpt_dir="ckpt"),
     dict(dp=2, sync="all_reduce", use_planner=True),
-    dict(ckpt_dir="ckpt"), dict(dp=2)])  # dp > 0 with sync="auto"
+    dict(dp=2)])  # dp > 0 with sync="auto"
 def test_options_not_ported_raise(kw):
     spec = JobSpec(arch="granite-3-2b", steps=2, batch=4, seq=8, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Session(spec, device="cpu").train()
 
 
-def test_modules_refuse_options_not_ported():
+def test_modules_refuse_options_not_ported(tmp_path):
+    """Checkpointing is ported: the loop and the overlapped trainer each
+    write one (ckpt_every=1).  remat="full" still raises."""
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.train(tcfg, RunConfig(), topt.OptConfig(), batch=2, seq=8,
-                    steps=1, device="cpu", ckpt_dir="ckpt")
+    tloop.train(tcfg, RunConfig(), topt.OptConfig(), batch=2, seq=8,
+                steps=1, device="cpu", log_every=0,
+                ckpt_dir=str(tmp_path / "loop"), ckpt_every=1)
+    assert (tmp_path / "loop" / "step_00000001.npz").exists()
     tr = DataParallelTrainer(tcfg, RunConfig(), topt.OptConfig(),
                              devices=["cpu"], sync_overlap=True)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tr.train(batch=2, seq=8, steps=1, ckpt_dir="ckpt")
+        tr.train(batch=2, seq=8, steps=1, log_every=0,
+                 ckpt_dir=str(tmp_path / "overlap"), ckpt_every=1)
     finally:
         tr.close()
+    assert (tmp_path / "overlap" / "step_00000001.npz").exists()
     with pytest.raises(ValueError, match="remat"):
         RunConfig(remat="full")
 
