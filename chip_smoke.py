@@ -33,7 +33,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    the hand-written kernels.  The kernels' launch counters are zeroed just
    before and read just after: flash launches must equal prefills x 40 and
    decode launches engine steps x 40.  Every request must return its n_new
-   tokens and no logits row may hold a NaN or inf.
+   tokens and no logits row may hold a NaN or inf.  The report must pass
+   the port's validate_report; it prints the replica lemma's prediction
+   (t_step, t_service, replicas; priced on the H100 SXM's 3.35 TB/s)
+   beside the measured t_step, t_prefill and t_service.
 4. reference — one full-width prefill and one decode step with the
    kernels against the plain dense path on the same weights and prompt.
 5. paged and scan kernels — the paged decode kernel on the tuning shape
@@ -109,6 +112,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
    staleness 0, bitwise equal to the one-rank parameter_server trainer
    over 3 steps, and at staleness 2 over 4 steps, whose report must read
    max_age 2; it prints the async report priced on the NVLink tier.
+11. plan — the paper's planner, no kernel launches either (counters zeroed
+   before, 0 after): (1) Session.plan() and dryrun() of full granite-3-2b
+   on mesh "single" (h100-8) and "multi" (h100-2x8): both reports valid,
+   priced on "h100-sxm"; it prints microbatch, attention, remat, sync
+   schedule, N_ps, the estimated step and memory and whether it fits;
+   (2) Session.train() with use_planner=True at full width (40 layers),
+   batch 4 x seq 512, 4 steps, with the plan's attention, remat and
+   microbatch (the plan's own shape, 32 x 4096 a card, is
+   benchmarks/torch_plan_check.py's): every loss finite, the report valid
+   with predicted.lemma31.source "measured"; it prints tokens/s, R_O and
+   max_memory_allocated() beside the plan's estimates; (3) the one-rank
+   DataParallelTrainer.from_plan at dp = 1 (4 layers, NCCL on a
+   TCPStore, the planned run, 3 steps), bitwise equal to the one-rank
+   trainer built with the plan's schedule by name.
 
 Then it prints the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line, and, last, the
@@ -1133,6 +1150,138 @@ def ckpt_phase(torch, wrappers) -> None:
         fail(f"phase 10 launched kernels: {moved}")
 
 
+def plan_phase(torch, wrappers) -> None:
+    """Phase 11: the planner (see the module docstring)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.api import JobSpec, Session, validate_report
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.trainer import DataParallelTrainer
+    from repro_torch.models import model as M
+    from repro_torch.models.common import materialize, tree_items
+    from repro_torch.optim.adamw import OptConfig
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    # 11.1: plan and dry run on the two H100 clusters the meshes name
+    for mesh in ("single", "multi"):
+        session = Session(JobSpec(arch="granite-3-2b", reduced=False,
+                                  mesh=mesh), device="cuda")
+        plan = session.plan()
+        dry = session.dryrun()
+        for rep in (plan, dry):
+            validate_report(rep.to_dict())
+        p, pred = plan.plan, plan.predicted
+        if p["topology"]["chip"] != "h100-sxm":
+            fail(f"mesh {mesh}: the plan is priced on "
+                 f"{p['topology']['chip']}, not the H100")
+        print(f"[plan] granite-3-2b full, train_4k, mesh {mesh} "
+              f"({p['topology']['name']}, dp {p['mesh'][0]}, chip "
+              f"{p['topology']['chip']}): microbatch {p['microbatch']}, "
+              f"attn_impl {p['attn_impl']}, remat {p['remat']}, "
+              f"sync_schedule {p['sync_schedule']}, N_ps "
+              f"{pred['lemma32']['n_parameter_servers']}, est_step_time "
+              f"{p['est_step_time']:.4f} s, est_memory_gb "
+              f"{p['est_memory_gb']:.2f}, fits {p['fits']}; Lemma 3.2 comm "
+              f"{pred['lemma32']['predicted_comm_s'] * 1e3:.2f} ms; dry run "
+              f"memory {dry.predicted['memory_bytes']['total'] / 1e9:.2f} GB",
+              flush=True)
+
+    # 11.2: a planned run at full width through Session.train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    spec = JobSpec(arch="granite-3-2b", reduced=False, steps=4, batch=4,
+                   seq=512, log_every=1, use_planner=True)
+    session = Session(spec, device="cuda")
+    rep = session.train()
+    peak = torch.cuda.max_memory_allocated()
+    validate_report(rep.to_dict())
+    m, p = rep.measured, rep.plan
+    run, _ = session.build_run_opt()
+    if rep.predicted["lemma31"]["source"] != "measured":
+        fail("the planned run's Lemma 3.1 is not from its measured R_O")
+    if not all(map(math.isfinite, m["losses"])):
+        fail(f"planned full-width losses {m['losses']}: not finite")
+    print(f"[plan] Session.train(use_planner=True), granite-3-2b full width "
+          f"(40 layers), batch 4 x seq 512, 4 steps, the plan's knobs "
+          f"(attn_impl {run.attn_impl}, remat {run.remat}, microbatch "
+          f"{run.microbatch}, {p['opt_kind']}): losses "
+          f"{[round(x, 4) for x in m['losses']]}; tokens/s "
+          f"{m['tokens_per_s']:.1f}, R_O {m['r_o']:.4f}, peak memory "
+          f"{peak / 1e9:.2f} GB (max_memory_allocated), steady step phases "
+          f"(s) {json.dumps(m['step_times_mean'])}; {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    print(f"[plan] beside the plan's estimates for its own shape (32 x 4096 "
+          f"a card of h100-8, optimizer state sharded over dp 8; not this "
+          f"run's shape): est_step_time {p['est_step_time']:.4f} s, "
+          f"est_memory_gb {p['est_memory_gb']:.2f}", flush=True)
+    plan = session.resolved_plan
+    del rep, session
+    torch.cuda.empty_cache()
+
+    # 11.3: from_plan at dp = 1, one rank on a TCPStore, against the
+    # trainer built with the plan's schedule by name
+    cfg = get_config("granite-3-2b").replace(num_layers=4)
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True,
+                          timeout=timedelta(seconds=120))
+    out = {}
+    for name in ("from_plan", "by_name"):
+        params = smooth_attention(materialize(M.model_specs(cfg), 0, "cuda"),
+                                  cfg)
+        opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=3)
+        kw = dict(devices=["cuda:0"], rank=0, world=1,
+                  store=dist.PrefixStore(name, store))
+        if name == "from_plan":
+            tr = DataParallelTrainer.from_plan(plan, cfg, run, opt, **kw)
+        else:
+            tr = DataParallelTrainer(cfg, run, opt,
+                                     strategy=plan.sync_schedule,
+                                     topology=plan.cluster, **kw)
+        try:
+            res = tr.train(batch=4, seq=512, steps=3, params=params,
+                           log_every=0)
+            out[name] = (res.losses, tr.params[0], tr.report(),
+                         (tr.strategy.n_servers, tr.strategy.tiers))
+        finally:
+            tr.close()
+        del tr, params
+    same = (out["from_plan"][0] == out["by_name"][0]
+            and trees_equal(torch, tree_items, out["from_plan"][1],
+                            out["by_name"][1]))
+    rep, named = out["from_plan"][2], out["by_name"][2]
+    sized = plan.resolve_sync()
+    print(f"[plan] DataParallelTrainer.from_plan, rank 0 of 1 (NCCL on a "
+          f"TCPStore), 4 layers, the planned run, 3 steps: strategy "
+          f"{rep.strategy} (the plan's {plan.sync_schedule}), (n_servers, "
+          f"tiers) {out['from_plan'][3]} (plan.resolve_sync(): "
+          f"{(sized.n_servers, sized.tiers)}; by name "
+          f"{out['by_name'][3]}), link_bw {rep.link_bw:.3e} (by name "
+          f"{named.link_bw:.3e}, the plan's {plan.link_bw:.3e}); losses "
+          f"{out['from_plan'][0]}; params bitwise equal to the trainer built "
+          f"with '{plan.sync_schedule}' by name: {same} (at dp = 1 every "
+          f"sync is the identity, so this holds the trainer's plumbing, not "
+          f"the strategy's sizing); phase wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if rep.strategy != plan.sync_schedule or not same:
+        fail("the from_plan trainer and the trainer built by name differ")
+    if out["from_plan"][3][0] != sized.n_servers:
+        fail("the from_plan trainer's n_servers is not plan.resolve_sync()'s")
+    if not rep.link_bw == named.link_bw == plan.link_bw:
+        fail("the from_plan and by-name trainers price Lemma 3.2 on "
+             "different links")
+    del out, store
+    torch.cuda.empty_cache()
+    moved = {name: fn.launches for name, fn in wrappers.items()
+             if fn.launches}
+    if moved:
+        fail(f"phase 11 launched kernels: {moved}")
+    print("[plan] no kernel launched on the planned paths", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -1145,7 +1294,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in fp32
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.api import JobSpec, Session
+    from repro_torch.api import JobSpec, Session, validate_report
     from repro_torch.configs.base import get_config
     from repro_torch.core import autotune
     from repro_torch.kernels import _build, ops, ref
@@ -1246,6 +1395,18 @@ def main() -> None:
           f"{hists['serve/decode_s']['p50'] * 1e3:.2f} ms over {steps} steps; "
           f"prefill p50 {hists['serve/prefill_s']['p50'] * 1e3:.2f} ms over "
           f"{prefills} prefills; launches {launches}", flush=True)
+    validate_report(rep.to_dict())
+    lemma = m["serving"]["replica_lemma"]
+    pred, meas = lemma["predicted"], lemma["measured"]
+    print(f"[serve] report valid (validate_report); replica lemma "
+          f"predicted (H100 SXM, 3.35 TB/s): t_step "
+          f"{pred['t_step_s'] * 1e3:.3f} ms, t_service "
+          f"{pred['t_service_s'] * 1e3:.3f} ms, replicas {pred['replicas']} "
+          f"at {pred['arrival_rate']:.3f} req/s; measured: t_step "
+          f"{meas['t_step_s'] * 1e3:.3f} ms, t_prefill "
+          f"{meas['t_prefill_s'] * 1e3:.3f} ms, t_service "
+          f"{meas['t_service_s'] * 1e3:.3f} ms; KV pool "
+          f"{m['serving']['kv_cache']['n_blocks']} blocks", flush=True)
     del rep, session
 
     # 4. reference -------------------------------------------------------------
@@ -1325,6 +1486,9 @@ def main() -> None:
 
     # 10. checkpoint and async PS ------------------------------------------------
     ckpt_phase(torch, wrappers)
+
+    # 11. plan -------------------------------------------------------------------
+    plan_phase(torch, wrappers)
 
     leaked = sorted(n for n in sys.modules
                     if n.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",

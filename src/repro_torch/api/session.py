@@ -1,72 +1,74 @@
-"""Session — execute a :class:`JobSpec` (the port of
-``repro.api.session``; ``train``, ``bench`` and ``serve``).
+"""Session — resolve a :class:`JobSpec` through the planner and execute it
+(the port of ``repro.api.session``; ``plan``, ``dryrun``, ``train``,
+``bench`` and ``serve``).
+
+The planner (``core/planner.py``) sizes the job first, always on the FULL
+architecture and the spec's production shape and mesh: microbatch,
+attention algorithm, remat, sync schedule, Lemma 3.1's efficiency and
+Lemma 3.2's comm time.  ``plan`` and ``dryrun`` stop at that prediction;
+the measured kinds carry it beside the measurement.
+
+**Where the port prices.**  ``mesh="single"`` is one 8 x H100 SXM node
+(``h100-8``) and ``mesh="multi"`` two of them over InfiniBand
+(``h100-2x8``), where the JAX package prices a 256- and a 512-chip TPU
+v5e mesh: the port's numbers are the card's own.  A named ``topology``
+resolves exactly as in JAX (so ``topology="2x4"`` prices on the same TPU
+cluster in both packages), and the plan's ``topology.chip`` records what
+it was priced on.
 
 ``Session.train()`` runs the training loop on the session's device
 (``spec.dp == 0``) or the data-parallel trainer on ``spec.dp`` ranks (one
 thread each, or, in a process ``torchrun`` started, this process's rank:
 ``cuda:LOCAL_RANK`` on the job's ``TCPStore``) — the bounded-staleness
-``AsyncPSTrainer`` when the spec asks for staleness or backup workers —
-with the JAX package's run configuration when the planner is off
-(``RunConfig(attn_impl="auto", remat="block")``, AdamW with a tenth of the
-steps as warmup), checkpointing into ``spec.ckpt_dir`` and resuming from
-it.  ``bench`` is the same run reported as ``bench``.
+``AsyncPSTrainer`` when the spec asks for staleness or backup workers,
+whose ``sync="auto"`` is the parameter server; otherwise ``sync="auto"``
+is the plan's schedule (``DataParallelTrainer.from_plan``).  With
+``use_planner`` the run adopts the plan's attention, remat, microbatch
+and optimizer; without it the JAX package's defaults
+(``RunConfig(attn_impl="auto", remat="block")``, AdamW with a tenth of
+the steps as warmup).  It checkpoints into ``spec.ckpt_dir`` and resumes
+from it.  ``bench`` is the same run reported as ``bench``.
 ``Session.serve()`` runs the spec's serving workload through the static
-``BatchScheduler`` or the continuous scheduler over the paged KV cache,
-with attention on the hand-written kernels (``attn_impl="kernel"``).
+``BatchScheduler`` or the continuous scheduler over the paged KV cache
+(sized by Eq. 5 on the mesh's chip), with attention on the hand-written
+kernels (``attn_impl="kernel"``), and reports the replica lemma's
+prediction beside its measurement.
 
-Every method returns a :class:`Report` whose ``measured`` dict has the JAX
-package's keys.  The planner's ``predicted`` block is left out: the
-planner (``core/planner.py``) is not ported yet, so there is no
-prediction to report.  For the same reason the serving section carries
-the measured half of the replica lemma only, and the KV pool is the
-working-set cap ``max_batch * ceil(s_max / kv_block)`` unless
-``max_kv_blocks`` pins it.  Options whose modules are not ported raise
-``NotImplementedError`` naming their ROADMAP item; nothing falls back.
+Every method returns a validated :class:`Report` whose ``measured`` dict
+has the JAX package's keys.  Options whose modules are not ported
+(``pipe > 1`` for training, ``tune``) raise ``NotImplementedError``
+naming their ROADMAP item; nothing falls back.
 """
 from __future__ import annotations
 
-import json
 import math
 import time
-from dataclasses import dataclass
+from functools import partial
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.api.report import SERVING_SCHEMA_ID, Report
 from repro_torch.api.spec import JobSpec
-from repro_torch.configs.base import ModelConfig, get_config
-from repro_torch.models import model as M
+from repro_torch.configs.base import ModelConfig, get_config, get_shape
+from repro_torch.core import amdahl, memory_model as mm, ps as ps_lib
+from repro_torch.core.hardware import ClusterSpec, MeshSpec, get_cluster
+from repro_torch.core.pipeline import pipeline_bubble
+from repro_torch.core.planner import (Plan, estimate_step_time,
+                                      plan as plan_fn, r_o_from_terms)
 from repro_torch.models.blocks import RunConfig
-from repro_torch.models.common import param_count, resolve_device
+from repro_torch.models.common import resolve_device
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.obs.trace import monotonic
 from repro_torch.optim.adamw import OptConfig
 
-SERVING_SCHEMA_ID = "repro.api/serving/v1"
-
-
-@dataclass
-class Report:
-    """What a Session method returns: the kind (train | bench | serve), the
-    spec, the measured dict, and provenance (the config that ran and the
-    device it ran on)."""
-
-    kind: str
-    spec: Dict[str, Any]
-    measured: Dict[str, Any]
-    meta: Dict[str, Any]
-
-    def to_dict(self) -> Dict[str, Any]:
-        return {"kind": self.kind, "spec": self.spec,
-                "measured": self.measured, "meta": self.meta}
-
-    def save(self, path) -> Path:
-        p = Path(path)
-        p.parent.mkdir(parents=True, exist_ok=True)
-        p.write_text(json.dumps(self.to_dict(), indent=2))
-        return p
+# Lemma 3.1 efficiency/speedup are reported for these device counts (the
+# paper's Fig. 4 sweep)
+LEMMA31_G = (2, 4, 8, 16)
+# the clusters the two meshes name: one H100 node, and two over InfiniBand
+MESH_CLUSTERS = {"single": "h100-8", "multi": "h100-2x8"}
 
 
 class Session:
@@ -80,7 +82,14 @@ class Session:
         self.cfg_full = get_config(spec.arch)
         self.cfg = config if config is not None else (
             self.cfg_full.reduced() if spec.reduced else self.cfg_full)
+        self.shape = get_shape(spec.shape)
+        # a named cluster pins the mesh geometry to its chip count (dp =
+        # chips, tp = 1); the meshes name the H100 clusters
+        self.cluster: ClusterSpec = get_cluster(
+            spec.topology or MESH_CLUSTERS[spec.mesh])
+        self.mesh_spec = MeshSpec.from_cluster(self.cluster)
         self._config_override = config is not None
+        self._plan: Optional[Plan] = None
         # telemetry of the last measured run, inspectable afterwards
         self.last_tracer: Optional[Tracer] = None
         self.last_metrics: Optional[MetricsRegistry] = None
@@ -99,23 +108,79 @@ class Session:
         return {"trace_file": str(path), "trace_events": len(tracer)}
 
     # ------------------------------------------------------------------
+    def _overlap_kwargs(self) -> Dict[str, Any]:
+        """The overlap knobs every planner and pricing call shares (no
+        calibration in the port yet: the ideal hideable window)."""
+        return dict(sync_overlap=self.spec.sync_overlap,
+                    bucket_mb=self.spec.bucket_mb, overlap_efficiency=1.0)
+
+    @property
+    def resolved_plan(self) -> Plan:
+        if self._plan is None:
+            self._plan = plan_fn(self.cfg_full, self.shape, self.mesh_spec,
+                                 pipe=self.spec.pipe or None,
+                                 n_microbatch=self.spec.n_microbatch,
+                                 staleness=self.spec.staleness,
+                                 backup_workers=self.spec.backup_workers,
+                                 **self._overlap_kwargs())
+        return self._plan
+
     def build_run_opt(self) -> Tuple[RunConfig, OptConfig]:
-        """RunConfig/OptConfig for this spec: the JAX package's settings
-        without the planner."""
+        """RunConfig/OptConfig for this spec: the plan's knobs when
+        ``use_planner`` (its attention as ``dense`` or ``auto``, its remat,
+        its microbatch capped at the batch, its optimizer), else the JAX
+        package's defaults."""
         spec = self.spec
-        if spec.use_planner:
-            raise NotImplementedError(
-                "use_planner: the planner (core/planner.py) is not ported "
-                "yet (ROADMAP Next 5)")
         if spec.tune:
             raise NotImplementedError(
                 "tune: the autotuner beyond bench_kernels is not ported yet "
                 "(ROADMAP Next 6, the rest of Session.tune())")
-        run = RunConfig(attn_impl="auto", remat="block")
-        opt = OptConfig(lr=spec.lr, warmup_steps=max(spec.steps // 10, 1),
-                        total_steps=spec.steps)
+        warmup = max(spec.steps // 10, 1)
+        if spec.use_planner:
+            p = self.resolved_plan
+            run = RunConfig(
+                attn_impl="dense" if p.attn_impl == "dense" else "auto",
+                remat=p.remat, microbatch=min(p.microbatch, spec.batch))
+            opt = OptConfig(kind=p.opt_kind, lr=spec.lr, warmup_steps=warmup,
+                            total_steps=spec.steps)
+        else:
+            run = RunConfig(attn_impl="auto", remat="block")
+            opt = OptConfig(lr=spec.lr, warmup_steps=warmup,
+                            total_steps=spec.steps)
         return run, opt
 
+    # ------------------------------------------------------------------
+    # Predictive kinds
+    # ------------------------------------------------------------------
+    def plan(self) -> Report:
+        """Resolve the planner only: spec + plan + Lemma predictions."""
+        return self._report("plan", {}, self._predicted())
+
+    def dryrun(self) -> Report:
+        """Analytic dry run: the plan plus the step-time roofline terms and
+        the memory model's breakdown, no training."""
+        p = self.resolved_plan
+        pred = self._predicted()
+        dp, tp = self.mesh_spec.dp, self.mesh_spec.tp
+        if self.shape.kind in ("train", "prefill"):
+            mem = mm.train_memory(
+                self.cfg_full, self.shape, dp=dp, tp=tp, fsdp=p.fsdp,
+                microbatch=p.microbatch, attn_impl=p.attn_impl, remat=p.remat,
+                seq_parallel=p.seq_parallel, opt_kind=p.opt_kind)
+        else:
+            mem = mm.decode_memory(self.cfg_full, self.shape, dp=dp, tp=tp,
+                                   fsdp=p.fsdp)
+        pred["memory_bytes"] = {
+            k: float(getattr(mem, k))
+            for k in ("params", "grads", "opt_state", "activations",
+                      "logits", "kv_cache")}
+        pred["memory_bytes"]["total"] = float(mem.total)
+        pred["fits"] = p.fits
+        return self._report("dryrun", {}, pred)
+
+    # ------------------------------------------------------------------
+    # Measured kinds
+    # ------------------------------------------------------------------
     def train(self) -> Report:
         """Run the training loop (``spec.dp == 0``) or the data-parallel
         trainer (``spec.dp > 0``)."""
@@ -138,11 +203,6 @@ class Session:
             raise NotImplementedError(
                 f"pipe={spec.pipe}: 1F1B pipeline parallelism "
                 "(distributed/pipeline.py) is not ported yet (ROADMAP Next 3)")
-        if spec.dp and spec.sync == "auto" and not self.is_async:
-            raise NotImplementedError(
-                "sync='auto' with dp > 0 resolves the planner's "
-                "sync_schedule (DataParallelTrainer.from_plan); the planner "
-                "is not ported yet (ROADMAP Next 5): name a schedule")
 
     def _dp_devices(self) -> List[torch.device]:
         """One device per rank: ``cuda:0..dp-1``, or the CPU for every
@@ -158,11 +218,11 @@ class Session:
     def _trainer(self, run, opt, tracer, metrics):
         """The data-parallel trainer for ``spec.dp`` ranks (the
         ``AsyncPSTrainer`` for an async spec, whose ``sync="auto"`` is the
-        parameter server, as in JAX): under ``torchrun``, this process's
-        one rank (``cuda:LOCAL_RANK``, or the CPU when the session runs
-        there) on the job's ``TCPStore``; otherwise every rank, one thread
-        each."""
-        from repro_torch.core.hardware import get_cluster
+        parameter server, as in JAX; otherwise ``sync="auto"`` builds it
+        from the plan, ``DataParallelTrainer.from_plan``): under
+        ``torchrun``, this process's one rank (``cuda:LOCAL_RANK``, or the
+        CPU when the session runs there) on the job's ``TCPStore``;
+        otherwise every rank, one thread each."""
         from repro_torch.distributed.async_ps import AsyncPSTrainer
         from repro_torch.distributed.overlap import DEFAULT_BUCKET_MB
         from repro_torch.distributed.trainer import (DataParallelTrainer,
@@ -175,18 +235,23 @@ class Session:
                             else None),
                   tracer=tracer, metrics=metrics)
         if self.is_async:
-            cls = AsyncPSTrainer
+            build = AsyncPSTrainer
             kw.update(staleness=spec.staleness,
                       backup_workers=spec.backup_workers,
                       strategy=("parameter_server" if spec.sync == "auto"
                                 else spec.sync))
         else:
-            cls = DataParallelTrainer
-            kw.update(strategy=spec.sync, sync_overlap=spec.sync_overlap,
+            kw.update(sync_overlap=spec.sync_overlap,
                       bucket_mb=spec.bucket_mb or DEFAULT_BUCKET_MB)
+            if spec.sync == "auto":
+                build = partial(DataParallelTrainer.from_plan,
+                                self.resolved_plan)
+            else:
+                build = DataParallelTrainer
+                kw.update(strategy=spec.sync)
         env = torchrun_env()
         if env is None:
-            return cls(self.cfg, run, opt, devices=self._dp_devices(), **kw)
+            return build(self.cfg, run, opt, devices=self._dp_devices(), **kw)
         if spec.dp != env.world:
             raise ValueError(f"dp={spec.dp} but torchrun started "
                              f"WORLD_SIZE={env.world} processes: run one "
@@ -198,8 +263,8 @@ class Session:
                     f"LOCAL_RANK {env.local_rank} but only "
                     f"{torch.cuda.device_count()} cards visible")
             dev = torch.device("cuda", env.local_rank)
-        return cls(self.cfg, run, opt, devices=[dev], rank=env.rank,
-                   world=env.world, store=torchrun_store(env), **kw)
+        return build(self.cfg, run, opt, devices=[dev], rank=env.rank,
+                     world=env.world, store=torchrun_store(env), **kw)
 
     def _run_train(self, kind: str) -> Report:
         from repro_torch.train.loop import train as train_loop
@@ -243,12 +308,14 @@ class Session:
         if async_rep is not None:
             measured["async_ps"] = async_rep.as_dict()
         measured["metrics"] = metrics.section()
-        meta = self.report_meta()
+        meta: Dict[str, Any] = {}
         if rank is not None:  # one process per rank: rank 0 writes
             meta["process"] = {"rank": rank, "world": spec.dp}
         if not rank:
             meta.update(self._save_trace(kind, tracer))
-        return Report(kind, spec.to_dict(), measured, meta)
+        return self._report(kind, measured,
+                            self._predicted(measured_r_o=measured["r_o"]),
+                            meta_extra=meta)
 
     # ------------------------------------------------------------------
     def serve(self) -> Report:
@@ -275,12 +342,19 @@ class Session:
         return reqs
 
     def kv_pool_blocks(self) -> int:
-        """KV pool size: ``spec.max_kv_blocks`` when pinned, else the run's
-        working set (``max_batch`` full-length rows)."""
+        """KV pool size: ``spec.max_kv_blocks`` when pinned, else the
+        Eq. 5 analogue (``memory_model.max_kv_blocks`` on this mesh's chip)
+        capped at this run's working set (``max_batch`` full-length rows —
+        reduced configs would otherwise derive pools of millions of
+        blocks)."""
         spec = self.spec
         if spec.max_kv_blocks:
             return spec.max_kv_blocks
-        return spec.max_batch * math.ceil(spec.s_max / spec.kv_block)
+        cap = spec.max_batch * math.ceil(spec.s_max / spec.kv_block)
+        derived = mm.max_kv_blocks(self.cfg, self.mesh_spec.chip.hbm_bytes,
+                                   block_size=spec.kv_block,
+                                   max_batch=spec.max_batch)
+        return min(derived, cap) if derived > 0 else cap
 
     @staticmethod
     def _latency_stats(latencies) -> Dict[str, float]:
@@ -292,14 +366,41 @@ class Session:
 
     def _serving_section(self, *, mode: str, kv_stats: Dict[str, Any],
                          latencies, stats: Dict[str, Any], wall: float,
-                         n_tokens: int, metrics) -> Dict[str, Any]:
-        """The ``repro.api/serving/v1`` block, measured numbers only."""
+                         n_tokens: int, n_news, lengths,
+                         metrics) -> Dict[str, Any]:
+        """The ``repro.api/serving/v1`` block: the measured distribution
+        and the inference replica lemma's prediction beside it."""
         spec = self.spec
         lat = self._latency_stats(latencies)
         tps = n_tokens / max(wall, 1e-9)
+        # measured per-step decode time (the lemma's t_step, observed)
         dh = metrics.histogram("serve/decode_s")
+        t_step_meas = dh.sum / dh.count if dh.count else 0.0
         ph = metrics.histogram("serve/prefill_s")
+        t_pre_meas = ph.sum / ph.count if ph.count else 0.0
+        # predicted t_step from the cost model: decode is HBM-bound —
+        # stream bf16 weights + the resident KV once per step (priced on
+        # this session's chip)
+        chip = self.mesh_spec.chip
+        param_bytes = 2.0 * mm.n_params(self.cfg)
+        kv_bytes = spec.max_batch * spec.s_max * mm.kv_token_bytes(self.cfg)
+        t_step_pred = ps_lib.decode_step_time(param_bytes, kv_bytes,
+                                              chip.hbm_bw)
+        mean_prompt = float(np.mean(list(lengths)))
+        mean_n_new = float(np.mean(list(n_news)))
+        # prefill prediction: per-token memory-bound like decode (crude
+        # but unit-consistent; the measured column sits right next to it)
+        t_pre_pred = mean_prompt * t_step_pred / max(spec.max_batch, 1)
         slo_s = spec.slo_ms / 1e3 if spec.slo_ms else 2.0 * lat["mean"]
+        t_svc_pred = ps_lib.service_time(t_pre_pred, int(round(mean_n_new)),
+                                         t_step_pred)
+        # offered load for the lemma: spec-pinned, else 2x one replica
+        rate = spec.arrival_rate or 2.0 * spec.max_batch / max(t_svc_pred,
+                                                               1e-9)
+        predicted = ps_lib.serve_replica_plan(
+            arrival_rate=rate, t_prefill_s=t_pre_pred,
+            t_step_s=t_step_pred, n_new=int(round(mean_n_new)),
+            batch=spec.max_batch, slo_s=slo_s)
         return {
             "schema": SERVING_SCHEMA_ID,
             "mode": mode,
@@ -321,9 +422,10 @@ class Session:
             },
             "slo": {"slo_s": slo_s, "attained": bool(lat["p99"] <= slo_s)},
             "replica_lemma": {
+                "predicted": predicted,
                 "measured": {
-                    "t_step_s": dh.sum / dh.count if dh.count else 0.0,
-                    "t_prefill_s": ph.sum / ph.count if ph.count else 0.0,
+                    "t_step_s": t_step_meas,
+                    "t_prefill_s": t_pre_meas,
                     "t_service_s": lat["mean"],
                     "tokens_per_s": tps,
                 },
@@ -354,15 +456,17 @@ class Session:
                      seed=spec.seed, device=self.device, tracer=tracer,
                      metrics=metrics)
         sched = BatchScheduler(eng, max_batch=spec.max_batch)
-        lengths = []
+        lengths, n_news = [], []
         for prompt, n, n_new in self._serve_workload():
             sched.submit(prompt, n_new)
             lengths.append(n)
+            n_news.append(n_new)
         t0 = monotonic()
         results = sched.run()
         wall = monotonic() - t0
         return self._finish("static", tracer, metrics, results, sched,
-                            dict(self._STATIC_KV_STATS), lengths, wall,
+                            dict(self._STATIC_KV_STATS), lengths, n_news,
+                            wall,
                             {"batches": [g.stats() for g in sched.history]})
 
     def _serve_continuous(self) -> Report:
@@ -384,18 +488,19 @@ class Session:
                           device=self.device)
         sched = ContinuousScheduler(eng, kv)
         arrivals = make_trace(spec.arrival, spec.requests, seed=spec.seed)
-        lengths = []
+        lengths, n_news = [], []
         for (prompt, n, n_new), step in zip(self._serve_workload(), arrivals):
             sched.submit(prompt, n_new, arrival_step=step)
             lengths.append(n)
+            n_news.append(n_new)
         t0 = monotonic()
         results = sched.run()
         wall = monotonic() - t0
         return self._finish("continuous", tracer, metrics, results, sched,
-                            kv.stats(), lengths, wall, {})
+                            kv.stats(), lengths, n_news, wall, {})
 
     def _finish(self, mode, tracer, metrics, results, sched, kv_stats,
-                lengths, wall, extra) -> Report:
+                lengths, n_news, wall, extra) -> Report:
         spec = self.spec
         per_request = self._per_request(results, sched.latencies)
         n_tokens = sum(r["tokens"] for r in per_request)
@@ -405,7 +510,8 @@ class Session:
         serving = self._serving_section(
             mode=mode, kv_stats=kv_stats,
             latencies=list(sched.latencies.values()), stats=sched.stats,
-            wall=wall, n_tokens=n_tokens, metrics=metrics)
+            wall=wall, n_tokens=n_tokens, n_news=n_news, lengths=lengths,
+            metrics=metrics)
         measured = {
             "requests": spec.requests,
             "n_new": spec.n_new,
@@ -418,21 +524,113 @@ class Session:
             "serving": serving,
             "metrics": metrics.section(),
         }
-        meta = self.report_meta()
-        meta.update(self._save_trace("serve", tracer))
-        return Report("serve", spec.to_dict(), measured, meta)
+        return self._report("serve", measured, self._predicted(),
+                            meta_extra=self._save_trace("serve", tracer))
+
+    # ------------------------------------------------------------------
+    # Shared prediction / report assembly
+    # ------------------------------------------------------------------
+    def _predicted(self, *, measured_r_o: Optional[float] = None) -> Dict:
+        p = self.resolved_plan
+        out: Dict[str, Any] = {
+            "est_step_time_s": p.est_step_time,
+            "est_memory_gb": p.est_memory_gb,
+            "efficiency_planned": p.efficiency,
+        }
+        # roofline terms (train-kind shapes only; decode is memory-bound)
+        r_o_model = 0.0
+        if self.shape.kind in ("train", "prefill"):
+            terms = estimate_step_time(self.cfg_full, self.shape,
+                                       self.mesh_spec, p.remat,
+                                       max(p.microbatch, 1), pipe=p.pipe,
+                                       n_microbatch=p.n_microbatch,
+                                       **self._overlap_kwargs())
+            out["step_time_terms"] = terms
+            # with overlap on, only the exposed collective share is overhead
+            r_o_model = r_o_from_terms(terms)
+        if p.pipe > 1:
+            out["pipeline"] = {
+                "pipe": p.pipe,
+                "n_microbatch": p.n_microbatch,
+                "stage_cut": list(p.stage_cut or ()),
+                "bubble_model": pipeline_bubble(p.pipe, p.n_microbatch),
+            }
+        # Lemma 3.1: efficiency/speedup curve from the best available R_O
+        r_o = measured_r_o if measured_r_o is not None else r_o_model
+        out["lemma31"] = {
+            "r_o": r_o,
+            "source": "measured" if measured_r_o is not None else "model",
+            "per_device": {
+                str(g): {"efficiency": amdahl.efficiency(g, r_o),
+                         "speedup": amdahl.speedup(g, r_o)}
+                for g in LEMMA31_G},
+        }
+        # Lemma 3.2: comm-time prediction for the planned schedule, priced
+        # on the plan's topology tiers
+        if p.sync_schedule in ("-", "") or not p.grad_bytes or p.link_bw <= 0:
+            out["lemma32"] = {"schedule": p.sync_schedule or "-"}
+            return out
+        dp = p.mesh[0]
+        t_c = (p.est_step_time if math.isfinite(p.est_step_time) else 1.0)
+        n_ps = ps_lib.n_parameter_servers(p.grad_bytes, dp, p.link_bw,
+                                          max(t_c, 1e-9))
+        comm = ps_lib.predicted_comm_time(
+            p.sync_schedule, p.grad_bytes, dp, p.link_bw, n_ps=n_ps,
+            tiers=p.dp_tiers())
+        out["lemma32"] = {
+            "schedule": p.sync_schedule,
+            "dp": dp,
+            "grad_bytes": p.grad_bytes,
+            "link_bw": p.link_bw,
+            "n_parameter_servers": n_ps,
+            "predicted_comm_s": comm,
+            "t_c_s": t_c,
+            "masked": comm <= t_c,
+            "bottleneck_tier": p.bottleneck_tier,
+        }
+        if p.sync_overlap:
+            # the overlapped refinement of the same lemma: comm that stays
+            # exposed after hiding under the backward pass
+            n_buckets = ps_lib.bucket_count(p.grad_bytes, p.bucket_mb)
+            eff = self._overlap_kwargs()["overlap_efficiency"]
+            exposed = ps_lib.overlap_exposed_comm(
+                comm, (1.0 - ps_lib.FWD_FRACTION) * t_c, n_buckets,
+                overlap_efficiency=eff)
+            out["lemma32"]["overlap"] = {
+                "n_buckets": n_buckets,
+                "bucket_mb": p.bucket_mb or ps_lib.DEFAULT_BUCKET_MB,
+                "overlap_efficiency": eff,
+                "exposed_comm_s": exposed,
+                "hidden_comm_s": comm - exposed,
+                "masked_after_overlap": exposed <= t_c,
+            }
+        cluster = p.cluster
+        if cluster is not None and not cluster.uniform:
+            # tier-aware PS placement: B_ps in-node vs cross-node
+            out["lemma32"]["ps_placement"] = ps_lib.ps_placement_plan(
+                p.grad_bytes, dp, cluster, max(t_c, 1e-9))
+        if self.spec.staleness or self.spec.backup_workers:
+            # bounded-staleness refinement: pull traffic amortized over s+1
+            # steps, straggler wait bought back by backup workers
+            out["lemma32"]["async_ps"] = ps_lib.async_step_time(
+                p.grad_bytes, dp, n_ps, p.link_bw, max(t_c, 1e-9),
+                staleness=self.spec.staleness,
+                backup_workers=self.spec.backup_workers)
+        return out
 
     def report_meta(self) -> Dict[str, Any]:
-        """Provenance: the config that executed and the device it ran on."""
+        """Provenance shared by every Report this session emits: the config
+        that executed (which, with ``config=`` or ``reduced=True``, differs
+        from the arch the spec and plan name) and the device it ran on."""
         dev = self.device
-        return {
+        meta: Dict[str, Any] = {
             "created": time.strftime("%Y-%m-%dT%H:%M:%S"),
             "executed_config": {
                 "name": self.cfg.name,
                 "d_model": self.cfg.d_model,
                 "num_layers": self.cfg.num_layers,
                 "vocab_size": self.cfg.vocab_size,
-                "n_params": param_count(M.model_specs(self.cfg)),
+                "n_params": int(mm.n_params(self.cfg)),
             },
             "config_override": self._config_override,
             "device": {
@@ -442,3 +640,22 @@ class Session:
                 "count": torch.cuda.device_count() if dev.type == "cuda" else 1,
             },
         }
+        if (self.spec.topology and self.spec.dp
+                and self.spec.dp != self.cluster.n_chips):
+            meta["topology_note"] = (
+                f"spec.dp={self.spec.dp} != topology "
+                f"{self.spec.topology!r} chips={self.cluster.n_chips}: "
+                "predicted blocks are priced on the full topology; the "
+                "measured run executes on spec.dp devices, where the sync "
+                "strategy may degenerate (see measured.sync.tiers)")
+        return meta
+
+    def _report(self, kind: str, measured: Dict, predicted: Dict, *,
+                meta_extra: Optional[Dict[str, Any]] = None) -> Report:
+        meta = self.report_meta()
+        if meta_extra:
+            meta.update(meta_extra)
+        return Report(kind=kind, spec=self.spec.to_dict(),
+                      plan=self.resolved_plan.to_dict(),
+                      measured=measured, predicted=predicted,
+                      meta=meta).validate()

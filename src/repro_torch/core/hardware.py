@@ -1,6 +1,10 @@
-"""Hardware constants and cluster topology (a copy of the parts of
-``repro.core.hardware`` that the trainer and ``core/ps`` use: ``Chip``,
-``Tier``, ``ClusterSpec`` and the named clusters).
+"""Hardware constants and cluster topology (a copy of
+``repro.core.hardware``: ``Chip``, ``Tier``, ``ClusterSpec`` with its JSON
+form, ``MeshSpec``, ``SINGLE_POD`` / ``MULTI_POD`` and the named clusters).
+
+- ``Chip.hbm_bytes``  -> Eq. (5)'s device memory ``M_GPU``  [bytes]
+- ``Chip.peak_flops`` -> the ``T_C`` denominator of the planner's step-time
+  roofline (``core.planner.estimate_step_time``)            [FLOP/s]
 
 - ``Tier.bw``      -> Lemma 3.2's server bandwidth ``B_ps`` and the
   collective wire bandwidth, per interconnect tier          [bytes/s]
@@ -16,7 +20,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -26,6 +30,14 @@ class Chip:
     hbm_bytes: float
     hbm_bw: float  # bytes/s
     link_bw: float  # bytes/s per ICI/interconnect link
+
+    # a calibrated overlay (the JAX package's autotuner) carries this
+    # suffix on the chip's name; plans it priced name it in their topology
+    CAL_SUFFIX = "+cal"
+
+    @property
+    def calibrated(self) -> bool:
+        return self.name.endswith(self.CAL_SUFFIX)
 
 
 TPU_V5E = Chip(
@@ -107,6 +119,12 @@ class ClusterSpec:
         return tuple(t.bw for t in self.tiers)
 
     @property
+    def uniform(self) -> bool:
+        """True when there is no bandwidth hierarchy to exploit: at most
+        one tier spans more than one group (the flat-mesh case)."""
+        return sum(1 for t in self.tiers if t.size > 1) <= 1
+
+    @property
     def min_bw(self) -> float:
         """Bandwidth of the narrowest *spanning* tier (size > 1): what a
         flat (topology-blind) collective is priced at."""
@@ -135,12 +153,89 @@ class ClusterSpec:
             return (Tier(self.bottleneck_tier, dp, self.min_bw),)
         return tuple(out)
 
+    # -- serialization (a Plan carries its cluster as this dict) ----------
+    def to_dict(self) -> Dict:
+        return {
+            "name": self.name,
+            "chip": self.chip.name,
+            "tiers": [{"name": t.name, "size": t.size, "bw": t.bw,
+                       "latency": t.latency} for t in self.tiers],
+        }
+
     @classmethod
-    def flat(cls, chips: int, bw: float = 0.0, *, chip: Chip = TPU_V5E,
-             name: str = "") -> "ClusterSpec":
+    def from_dict(cls, d: Dict) -> "ClusterSpec":
+        chips = {c.name: c for c in CHIPS}
+        chip_name = d.get("chip", TPU_V5E.name)
+        # calibrated overlays serialize as "<chip>+cal"; the measured
+        # constants live in the tier bandwidths, so deserialization falls
+        # back to the data-sheet base chip
+        if chip_name.endswith(Chip.CAL_SUFFIX):
+            chip_name = chip_name[:-len(Chip.CAL_SUFFIX)]
+        if chip_name not in chips:
+            raise KeyError(f"unknown chip {chip_name!r} in serialized "
+                           f"cluster {d.get('name')!r}; known: {sorted(chips)}")
+        return cls(
+            name=d["name"],
+            chip=chips[chip_name],
+            tiers=tuple(Tier(t["name"], int(t["size"]), float(t["bw"]),
+                             float(t.get("latency", 0.0)))
+                        for t in d["tiers"]),
+        )
+
+    @classmethod
+    def flat(cls, chips: int, bw: Optional[float] = None, *,
+             chip: Chip = TPU_V5E, name: str = "") -> "ClusterSpec":
         """Single-tier cluster."""
         return cls(name=name or f"flat{chips}", chip=chip,
                    tiers=(Tier("pod", chips, bw or chip.link_bw),))
+
+
+# the chips a serialized cluster may name
+CHIPS = (TPU_V5E, K80_GK210, H100_SXM)
+
+
+@dataclass(frozen=True)
+class MeshSpec:
+    """Mesh geometry (dp x tp) + the cluster topology it maps onto."""
+
+    chips: int
+    dp: int  # data-parallel degree (pod*data)
+    tp: int  # model-parallel degree
+    chip: Chip = TPU_V5E
+    topology: Optional[ClusterSpec] = None  # None => flat single tier
+
+    @property
+    def total_flops(self) -> float:
+        return self.chips * self.chip.peak_flops
+
+    @property
+    def total_hbm(self) -> float:
+        return self.chips * self.chip.hbm_bytes
+
+    @property
+    def cluster(self) -> ClusterSpec:
+        """The topology, or its flat single-tier equivalent when omitted."""
+        if self.topology is not None:
+            return self.topology
+        return ClusterSpec.flat(self.chips, self.chip.link_bw, chip=self.chip)
+
+    @classmethod
+    def from_cluster(cls, cluster: ClusterSpec, *, tp: int = 1) -> "MeshSpec":
+        n = cluster.n_chips
+        if n % tp:
+            raise ValueError(f"tp={tp} does not divide {n} chips")
+        return cls(chips=n, dp=n // tp, tp=tp, chip=cluster.chip,
+                   topology=cluster)
+
+
+# the JAX package's default meshes: one 256-chip TPU v5e pod, and two such
+# pods over the data-center network
+SINGLE_POD = MeshSpec(chips=256, dp=16, tp=16)
+MULTI_POD = MeshSpec(
+    chips=512, dp=32, tp=16,
+    topology=ClusterSpec(
+        "2pod-dcn", TPU_V5E,
+        (Tier("pod", 256, TPU_V5E.link_bw), Tier("dcn", 2, 25e9))))
 
 
 # The named clusters JobSpec.topology addresses (the JAX package's CLUSTERS)
@@ -160,9 +255,7 @@ CLUSTERS: Dict[str, ClusterSpec] = {
                           (Tier("node", 8, 10e9),
                            Tier("cluster", 2, 10e9 / 8))),
     "pod": ClusterSpec.flat(256, name="pod"),
-    "2pod-dcn": ClusterSpec("2pod-dcn", TPU_V5E,
-                            (Tier("pod", 256, TPU_V5E.link_bw),
-                             Tier("dcn", 2, 25e9))),
+    "2pod-dcn": MULTI_POD.topology,
     # one 8 x H100 SXM node (HGX / DGX H100): every card on NVLink
     "h100-8": ClusterSpec("h100-8", H100_SXM,
                           (Tier("node", 8, H100_SXM.link_bw),)),

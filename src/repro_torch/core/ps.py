@@ -1,10 +1,10 @@
-"""Lemma 3.2 — parameter-server sizing and the comm-time forms the
-gradient-sync strategies are priced with, the overlap-aware step pricing
-of bucketed sync, and the bounded-staleness / backup-worker step model
-(a copy of the parts of ``repro.core.ps`` that
-``distributed/collectives.py``, ``distributed/overlap.py``,
-``distributed/async_ps.py`` and ``SyncReport`` call; serving's replica
-lemma and the planner's ``SyncPlan`` stay in the JAX package).
+"""Lemma 3.2 — parameter-server sizing, the comm-time forms the
+gradient-sync strategies are priced with, the tier-aware placement of the
+servers, the lemma as a decision (``grad_sync_plan``, which schedule masks
+behind T_C on a topology), the overlap-aware step pricing of bucketed
+sync, the bounded-staleness / backup-worker step model, and the serving
+form of the lemma (replicas against a latency SLO): a copy of
+``repro.core.ps``.
 
 Paper form:  N_ps >= 2 * S_p * N_w / (B_ps * T_C).
 Units: S_p and wire bytes in bytes, B_ps / bw in bytes/s, T_C and comm
@@ -12,10 +12,12 @@ times in seconds, N_w / N_ps / dp counts.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Sequence, Tuple
 
-from repro_torch.core.hardware import Tier
+from repro_torch.core.hardware import ClusterSpec, Tier
 
 # Runnable schedules (repro_torch.distributed.collectives executes them)
 SCHEDULES = ("all_reduce", "reduce_scatter_all_gather", "parameter_server",
@@ -37,6 +39,56 @@ def io_time(s_p: float, n_w: int, n_ps: int, b_ps: float) -> float:
 def masked(s_p: float, n_w: int, n_ps: int, b_ps: float, t_c: float) -> bool:
     """True iff I/O hides behind compute (the ideal-pipeline condition)."""
     return io_time(s_p, n_w, n_ps, b_ps) <= t_c
+
+
+# ---------------------------------------------------------------------------
+# Tier-aware Lemma 3.2: B_ps depends on where the servers sit
+# ---------------------------------------------------------------------------
+
+PS_PLACEMENTS = ("in_node", "cross_node")
+
+
+def ps_placement_bw(cluster: ClusterSpec, placement: str) -> float:
+    """The ``B_ps`` a parameter server sees on this cluster.
+
+    ``in_node``: the PS shard is colocated with its workers' node, so
+    push/pull rides the innermost (fastest) tier.  ``cross_node``: the PS
+    pool lives across the slow tier (the paper's dedicated-PS deployment),
+    so every byte crosses the narrowest spanning link.
+    """
+    if placement == "in_node":
+        return cluster.tiers[0].bw
+    if placement == "cross_node":
+        return cluster.min_bw
+    raise KeyError(f"unknown placement {placement!r}; known: {PS_PLACEMENTS}")
+
+
+def n_parameter_servers_tiered(s_p: float, n_w: int, cluster: ClusterSpec,
+                               t_c: float, *,
+                               placement: str = "cross_node") -> int:
+    """Lemma 3.2 with ``B_ps`` read off the topology tier the servers sit
+    on, instead of a flat scalar."""
+    return n_parameter_servers(s_p, n_w, ps_placement_bw(cluster, placement),
+                               t_c)
+
+
+def ps_placement_plan(s_p: float, n_w: int, cluster: ClusterSpec,
+                      t_c: float) -> Dict[str, Dict[str, float]]:
+    """Both Lemma 3.2 regimes side by side: the N_ps you need when servers
+    are in-node vs across the slow tier, and which placement is cheaper
+    (fewer servers for the same maskability)."""
+    out: Dict[str, Dict[str, float]] = {}
+    for placement in PS_PLACEMENTS:
+        bw = ps_placement_bw(cluster, placement)
+        n_ps = n_parameter_servers(s_p, n_w, bw, t_c)
+        out[placement] = {
+            "b_ps": bw,
+            "n_ps": n_ps,
+            "io_time_s": io_time(s_p, n_w, n_ps, bw),
+        }
+    out["recommended"] = min(
+        PS_PLACEMENTS, key=lambda p: out[p]["n_ps"])  # type: ignore[assignment]
+    return out
 
 
 def flat_wire_bytes(s_p: float, dp: int) -> float:
@@ -245,3 +297,179 @@ def async_step_time(s_p: float, n_w: int, n_ps: int, b_ps: float, t_c: float,
         "wall_step": wall,
         "effective_step": wall / eff,
     }
+
+
+@dataclass(frozen=True)
+class SyncPlan:
+    schedule: str  # one of SCHEDULES (PS only via explicit request)
+    comm_time: float
+    compute_time: float
+    masked: bool
+    note: str
+    bottleneck_tier: str = ""
+    per_tier: Tuple[Dict, ...] = field(default_factory=tuple)
+
+
+def tpu_grad_sync_plan(param_bytes: float, dp: int, link_bw: float,
+                       t_c: float, *, zero_sharded: bool = True) -> SyncPlan:
+    """Lemma 3.2 on the TPU data axis.
+
+    all-reduce moves ~2*S_p*(dp-1)/dp per chip; reduce-scatter + all-gather
+    moves the same wire bytes but splits the optimizer work 1/dp per chip
+    (the ZeRO '"N_ps = dp parameter servers'" mapping) and lets the
+    all-gather overlap the next step's first layers.
+    """
+    wire = flat_wire_bytes(param_bytes, dp)
+    comm = wire / link_bw
+    schedule = "reduce_scatter_all_gather" if zero_sharded else "all_reduce"
+    return SyncPlan(
+        schedule=schedule,
+        comm_time=comm,
+        compute_time=t_c,
+        masked=comm <= t_c,
+        note=(f"wire {wire/1e9:.2f} GB over dp={dp}; "
+              + ("hidden behind compute" if comm <= t_c else
+                 "NOT maskable - increase T_C (bigger microbatch) or shrink S_p")),
+    )
+
+
+def grad_sync_plan(param_bytes: float, dp_tiers: Sequence[Tier], t_c: float,
+                   *, zero_sharded: bool = True) -> SyncPlan:
+    """Tier-aware Lemma 3.2: pick the cheapest schedule for this topology.
+
+    On a uniform (single spanning tier) view this reduces exactly to
+    :func:`tpu_grad_sync_plan`.  On a hierarchy it prices the flat ring at
+    the bottleneck bandwidth against the hierarchical reduce/exchange/
+    broadcast and returns whichever masks better, with the per-tier
+    breakdown and the bottleneck tier named either way.
+    """
+    spanning = [t for t in dp_tiers if t.size > 1]
+    dp = math.prod(t.size for t in dp_tiers) if dp_tiers else 1
+    if len(spanning) <= 1:
+        bw = spanning[0].bw if spanning else dp_tiers[0].bw
+        flat = tpu_grad_sync_plan(param_bytes, dp, bw, t_c,
+                                  zero_sharded=zero_sharded)
+        lat = spanning[0].latency if spanning else 0.0
+        if lat:
+            comm = flat.comm_time + lat
+            flat = dataclasses.replace(flat, comm_time=comm,
+                                       masked=comm <= t_c)
+        name = spanning[0].name if spanning else dp_tiers[0].name
+        return dataclasses.replace(flat, bottleneck_tier=name)
+
+    min_bw = min(t.bw for t in spanning)
+    # the flat ring spans every tier, so it pays each spanning tier's
+    # latency too — without this the comparison would be biased flat-ward
+    flat_time = (flat_wire_bytes(param_bytes, dp) / min_bw
+                 + sum(t.latency for t in spanning))
+    hier_time, per_tier = hier_comm_time(param_bytes, dp_tiers)
+    if hier_time < flat_time:
+        bottleneck = max((p for p in per_tier if p["size"] > 1),
+                         key=lambda p: p["time_s"])["tier"]
+        return SyncPlan(
+            schedule="hier_all_reduce",
+            comm_time=hier_time,
+            compute_time=t_c,
+            masked=hier_time <= t_c,
+            note=(f"hierarchical {'x'.join(str(t.size) for t in dp_tiers)}: "
+                  f"{hier_time:.3f}s vs flat {flat_time:.3f}s at bottleneck "
+                  f"tier '{bottleneck}'; "
+                  + ("hidden behind compute" if hier_time <= t_c
+                     else "NOT maskable")),
+            bottleneck_tier=bottleneck,
+            per_tier=per_tier,
+        )
+    flat = tpu_grad_sync_plan(param_bytes, dp, min_bw, t_c,
+                              zero_sharded=zero_sharded)
+    if flat_time != flat.comm_time:  # carry the latency hops priced above
+        flat = dataclasses.replace(flat, comm_time=flat_time,
+                                   masked=flat_time <= t_c)
+    bottleneck = min(spanning, key=lambda t: t.bw).name
+    return dataclasses.replace(flat, bottleneck_tier=bottleneck)
+
+
+# ---------------------------------------------------------------------------
+# Lemma 3.2 for inference — replica sizing against a latency SLO
+# ---------------------------------------------------------------------------
+# The training lemma sizes servers so I/O hides behind compute.  Serving has
+# the same structure with the roles renamed: the "step time" is one decode
+# step (HBM-bound weight + KV traffic), the "budget" is the latency SLO, and
+# the sized resource is replicas instead of parameter servers.
+#
+# Model: each replica is an M/D/1 queue (Poisson arrivals at rate
+# lambda/N_rep, deterministic service T_svc / batch).  Mean wait
+# W_q = rho * T_svc / (2 * (1 - rho)); requiring W_q <= slack = SLO - T_svc
+# gives the utilization ceiling rho* = x / (1 + x) with x = 2*slack/T_svc,
+# and hence  N_rep = ceil(lambda * T_svc / (batch * rho*)).
+
+
+def decode_step_time(param_bytes: float, kv_bytes: float, hbm_bw: float) -> float:
+    """One decode step is HBM-bound: stream weights + resident KV once.
+    param_bytes/kv_bytes in bytes, hbm_bw in bytes/s -> seconds."""
+    if hbm_bw <= 0:
+        raise ValueError("hbm_bw > 0")
+    return (param_bytes + kv_bytes) / hbm_bw
+
+
+def service_time(t_prefill: float, n_new: int, t_step: float) -> float:
+    """End-to-end service time for one request: prefill + n_new decode steps.
+    (The prefill samples the first token, so n_new-1 further steps would be
+    exact; we keep n_new as a half-step of slack for sampling overhead.)"""
+    return t_prefill + n_new * t_step
+
+
+def md1_wait(rho: float, t_svc: float) -> float:
+    """M/D/1 mean queueing delay at utilization rho (0 <= rho < 1)."""
+    if not 0 <= rho < 1:
+        raise ValueError("0 <= rho < 1")
+    return rho * t_svc / (2.0 * (1.0 - rho))
+
+
+def serve_utilization_bound(slo_s: float, t_svc: float) -> float:
+    """Largest per-replica utilization rho* with W_q(rho*) <= SLO - T_svc.
+    Returns 0.0 when the SLO is not attainable even on an idle replica
+    (slack <= 0) -- callers must treat 0 as "no finite replica count"."""
+    slack = slo_s - t_svc
+    if slack <= 0 or t_svc <= 0:
+        return 0.0
+    x = 2.0 * slack / t_svc
+    return x / (1.0 + x)
+
+
+def n_replicas(arrival_rate: float, t_svc: float, batch: int,
+               rho_star: float) -> int:
+    """Replica count so each replica runs at <= rho*; ceil'd like Eq. 8."""
+    if rho_star <= 0:
+        raise ValueError("SLO unattainable: rho* <= 0")
+    per_replica = batch * rho_star / t_svc  # sustainable req/s per replica
+    return max(1, math.ceil(arrival_rate / per_replica))
+
+
+def serve_replica_plan(*, arrival_rate: float, t_prefill_s: float,
+                       t_step_s: float, n_new: int, batch: int,
+                       slo_s: float) -> Dict[str, object]:
+    """The inference lemma as a decision, JSON-safe (no inf/nan).
+
+    arrival_rate in requests/s offered to the fleet; slo_s is the p-mean
+    end-to-end latency target.  Returns predicted replicas, the service
+    time, the utilization ceiling, and whether the SLO is attainable at
+    all (slack > 0).
+    """
+    t_svc = service_time(t_prefill_s, n_new, t_step_s)
+    rho_star = serve_utilization_bound(slo_s, t_svc)
+    attainable = rho_star > 0
+    replicas = n_replicas(arrival_rate, t_svc, batch, rho_star) if attainable else 0
+    plan: Dict[str, object] = {
+        "t_service_s": t_svc,
+        "t_step_s": t_step_s,
+        "utilization_bound": rho_star,
+        "replicas": replicas,
+        "attainable": attainable,
+        "arrival_rate": arrival_rate,
+        "slo_s": slo_s,
+    }
+    if attainable:
+        rho = arrival_rate * t_svc / (batch * replicas)
+        plan["utilization"] = rho
+        plan["wait_s"] = md1_wait(min(rho, rho_star), t_svc)
+    return plan

@@ -80,9 +80,8 @@ from repro_torch.distributed.overlap import (DEFAULT_BUCKET_MB, BucketPlan,
 from repro_torch.launch.steps import build_grad_fn
 from repro_torch.models import model as M
 from repro_torch.models.blocks import RunConfig
-from repro_torch.models.common import (materialize, param_count,
-                                       resolve_device, tree_items, tree_map,
-                                       tree_unflatten)
+from repro_torch.models.common import (param_count, resolve_device,
+                                       tree_items, tree_map, tree_unflatten)
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.optim import adamw as opt_lib
 from repro_torch.train import loop as loop_lib
@@ -96,12 +95,12 @@ GROUP_TIMEOUT = timedelta(seconds=300)
 
 
 def default_link_bw(devices, topology: Optional[ClusterSpec]) -> float:
-    """Lemma 3.2's link bandwidth when the caller names none: on cards with
-    no topology, the in-node (NVLink) tier of one H100 node; otherwise the
-    JAX package's CPU-emulation default."""
-    if topology is None and any(torch.device(d).type == "cuda"
-                                for d in devices):
-        return H100_NODE.tiers[0].bw
+    """Lemma 3.2's link bandwidth when the caller names none: on cards, the
+    topology's narrowest spanning tier, or the NVLink of one H100 node
+    (``h100-8``) when there is no topology; on the CPU, the JAX package's
+    CPU-emulation default."""
+    if any(torch.device(d).type == "cuda" for d in devices):
+        return (topology if topology is not None else H100_NODE).min_bw
     return DEFAULT_LINK_BW
 
 
@@ -343,6 +342,33 @@ class DataParallelTrainer:
             self._streams = [torch.cuda.Stream(d) if d.type == "cuda"
                              else None for d in self.devices]
 
+    @classmethod
+    def from_plan(cls, plan, cfg: ModelConfig, run: RunConfig,
+                  opt: opt_lib.OptConfig, *,
+                  devices: Optional[List] = None,
+                  link_bw: Optional[float] = None,
+                  topology: Optional[ClusterSpec] = None,
+                  sync_overlap: Optional[bool] = None,
+                  bucket_mb: Optional[float] = None,
+                  **kw) -> "DataParallelTrainer":
+        """Trainer whose sync strategy comes from a planner ``Plan``:
+        ``plan.resolve_sync()`` supplies the Lemma-3.2-sized strategy
+        instance; the topology defaults to the plan's own, the overlap
+        knobs to the plan's ``sync_overlap``/``bucket_mb``.  The link
+        bandwidth, when not given, is the constructor's
+        (:func:`default_link_bw` of the plan's topology).  The other
+        keywords (compression, rank/world/store, telemetry) pass
+        through."""
+        if topology is None:
+            topology = plan.cluster
+        if sync_overlap is None:
+            sync_overlap = bool(plan.sync_overlap)
+        if bucket_mb is None:
+            bucket_mb = float(plan.bucket_mb or DEFAULT_BUCKET_MB)
+        return cls(cfg, run, opt, strategy=plan.resolve_sync(),
+                   devices=devices, link_bw=link_bw, topology=topology,
+                   sync_overlap=sync_overlap, bucket_mb=bucket_mb, **kw)
+
     def _resolve_tiers(self, topology: Optional[ClusterSpec]) -> Tuple[int, ...]:
         """dp-axis fan-out per tier for the hierarchical strategy: the
         strategy's own sizing when it matches the rank count, else the
@@ -481,10 +507,10 @@ class DataParallelTrainer:
         return ps, states
 
     def init(self, seed: int = 0):
-        """Replicated params (``materialize`` on the first local rank's
+        """Replicated params (``init_params`` on the first local rank's
         device, copied; a seeded draw, so every process of a one-rank job
         makes the same values) and optimizer states, one per local rank."""
-        params = materialize(M.model_specs(self.cfg), seed, self.devices[0])
+        params = M.init_params(self.cfg, seed, self.devices[0])
         return self.replicate(params)
 
     # ------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Training launcher of the port — a thin CLI over ``repro_torch.api``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
-        [--reduced | --full] [--steps 100] [--batch 8] [--seq 128] \\
-        [--dp 2 --sync all_reduce|reduce_scatter_all_gather|parameter_server|hier_all_reduce
+        [--reduced | --full] [--steps 100] [--batch 8] [--seq 128] [--plan] \\
+        [--dp 2 --sync auto|all_reduce|reduce_scatter_all_gather|parameter_server|hier_all_reduce
                [--compress none|bf16|int8|topk] [--topology 2x4]
                [--overlap --bucket-mb 4]
                [--staleness 2 --backup-workers 1 [--sync auto]]] \\
@@ -21,12 +21,14 @@ process's rank on ``cuda:LOCAL_RANK`` (``--dp`` must equal WORLD_SIZE);
 then only rank 0 prints, writes the report and the checkpoints.
 ``--staleness`` / ``--backup-workers`` (with ``--dp``) run the
 bounded-staleness parameter server (``--sync auto`` is then the
-parameter server); ``--ckpt-dir`` checkpoints every ``--ckpt-every``
-steps (0: 50) and resumes from the newest complete step there.  Options
-whose modules are not ported (``--plan``, ``--pipe``, ``--autotune``, and
-``--sync auto`` with a synchronous ``--dp``) raise
-``NotImplementedError``.  It prints the JAX launcher's summary lines and
-its JSON last line.
+parameter server); otherwise ``--sync auto`` (the default) with ``--dp``
+runs the planner's schedule.  ``--plan`` prints the plan (priced on the
+H100 cluster the mesh names, or on ``--topology``) and runs with its
+attention, remat, microbatch and optimizer.  ``--ckpt-dir`` checkpoints
+every ``--ckpt-every`` steps (0: 50) and resumes from the newest complete
+step there.  Options whose modules are not ported (``--pipe``,
+``--autotune``) raise ``NotImplementedError``.  It prints the JAX
+launcher's summary lines and its JSON last line.
 """
 from __future__ import annotations
 
@@ -68,7 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--plan", action="store_true",
-                    help="consult the planner (not ported: raises)")
+                    help="print the planner's plan and adopt its knobs "
+                         "(microbatch / attention / remat / optimizer)")
     ap.add_argument("--ckpt-dir", default="",
                     help="checkpoint directory: save every --ckpt-every "
                          "steps, resume from its newest complete step")
@@ -89,10 +92,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--microbatch", type=int, default=0,
                     help="1F1B microbatches per step")
     ap.add_argument("--sync", default="auto",
-                    help="gradient-sync strategy ('auto', the planner's "
-                         "choice, is not ported: name one with a "
-                         "synchronous --dp; with --staleness or "
-                         "--backup-workers it is the parameter server)")
+                    help="gradient-sync strategy ('auto' = the planner's "
+                         "schedule; with --staleness or --backup-workers "
+                         "the parameter server)")
     ap.add_argument("--compress", default="none",
                     help="gradient compression: none|bf16|int8|topk")
     ap.add_argument("--overlap", action=argparse.BooleanOptionalAction,
@@ -118,17 +120,23 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main():
-    args = build_parser().parse_args()
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     env = torchrun_env()
     sess = Session(build_spec(args), device=args.device)
     cfg = sess.cfg
     lead = env is None or env.rank == 0  # the one process that reports
+    if lead and args.plan:
+        print("planner:", sess.resolved_plan)
     if lead:
         print(f"training {cfg.name} ({'reduced' if args.reduced else 'FULL'}) "
               f"batch={args.batch} seq={args.seq} steps={args.steps} "
               f"device={sess.device}"
               + (f" ranks={env.world} (one process each)" if env else ""))
+        if args.dp and args.sync == "auto" and not (args.staleness
+                                                    or args.backup_workers):
+            print(f"sync resolved from planner: "
+                  f"{sess.resolved_plan.sync_schedule}")
     rep = sess.train()
     if not lead:
         return

@@ -16,8 +16,9 @@ full-sequence path (prefill) and cached single-token decode.
   three.
 
 Shapes: x (B, S, D); caches are per-slot dicts of (B, S_max, KV, hd).
-MLA, int8 KV caches and chunked prefill are not ported yet (ROADMAP A10,
-A11) and raise ``NotImplementedError``.
+MLA's forward and decode (its parameter shapes are here, for the
+planner), int8 KV caches and chunked prefill are not ported yet (ROADMAP
+A10, A11) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -58,10 +59,27 @@ def gqa_specs(cfg: ModelConfig, layers: int) -> Dict[str, ParamSpec]:
     return s
 
 
+def mla_specs(cfg: ModelConfig, layers: int) -> Dict[str, ParamSpec]:
+    """MLA's parameter shapes (its forward and decode are not ported yet,
+    ROADMAP A11)."""
+    D, H = cfg.d_model, cfg.num_heads
+    nope, rdim, vdim = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    qlr, kvlr = cfg.q_lora_rank, cfg.kv_lora_rank
+    L = (layers,)
+    la = ("layers",)
+    return {
+        "wq_down": ParamSpec(L + (D, qlr), la + ("embed", "lora")),
+        "q_norm": ParamSpec(L + (qlr,), la + ("lora",), init="zeros"),
+        "wq_up": ParamSpec(L + (qlr, H, nope + rdim), la + ("lora", "q_heads", None)),
+        "wkv_down": ParamSpec(L + (D, kvlr + rdim), la + ("embed", None)),
+        "kv_norm": ParamSpec(L + (kvlr,), la + (None,), init="zeros"),
+        "wkv_up": ParamSpec(L + (kvlr, H, nope + vdim), la + (None, "q_heads", None)),
+        "wo": ParamSpec(L + (H, vdim, D), la + ("q_heads", None, "embed")),
+    }
+
+
 def attn_specs(cfg: ModelConfig, mixer: str, layers: int) -> Dict[str, ParamSpec]:
-    if mixer.startswith("mla"):
-        raise NotImplementedError("MLA attention is not ported yet (ROADMAP A11)")
-    return gqa_specs(cfg, layers)
+    return mla_specs(cfg, layers) if mixer.startswith("mla") else gqa_specs(cfg, layers)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,14 @@
 """Block (slot) composition: pre-norm mixer + residual, pre-norm MLP +
-residual, optional post-norms — the port of ``repro.models.blocks`` for
-``("attn", "dense")`` slots.  Other slot kinds (sliding-window, MLA,
-Mamba, MoE) raise ``NotImplementedError`` until their slice is ported
-(ROADMAP A11); the Mamba mixer itself is ``models/ssm.py``, and its slot
-comes with Mamba serving."""
+residual, optional post-norms — the port of ``repro.models.blocks``.
+
+``slot_specs`` gives the parameter shapes of every slot kind (GQA, MLA,
+Mamba; dense, MoE, and arctic's dense + MoE), so the planner prices the
+full architecture of every arch.  Forward and decode run
+``("attn", "dense")`` slots; the others raise ``NotImplementedError``
+until their slice is ported (ROADMAP A11), and
+``models.model.init_params`` refuses them before any parameter exists.
+The Mamba mixer itself is ``models/ssm.py``; its slot comes with Mamba
+serving."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -12,6 +17,7 @@ from typing import Any, Dict
 from repro_torch.configs.base import ModelConfig, SlotSpec
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import ParamSpec, rms_norm
 
 PORTED_SLOTS = (("attn", "dense"),)
@@ -36,7 +42,7 @@ class RunConfig:
                              f"got {self.remat!r}")
 
 
-def _check_slot(slot: SlotSpec) -> None:
+def check_slot(slot: SlotSpec) -> None:
     if (slot.mixer, slot.mlp) not in PORTED_SLOTS:
         raise NotImplementedError(
             f"slot ({slot.mixer!r}, {slot.mlp!r}) is not ported yet; the port "
@@ -49,18 +55,30 @@ def _check_slot(slot: SlotSpec) -> None:
 
 
 def slot_specs(cfg: ModelConfig, slot: SlotSpec, layers: int) -> Dict[str, Any]:
-    _check_slot(slot)
     la = ("layers",)
     L = (layers,)
     s: Dict[str, Any] = {
         "mixer_norm": ParamSpec(L + (cfg.d_model,), la + ("embed",), init="zeros"),
-        "mixer": attn.attn_specs(cfg, slot.mixer, layers),
     }
+    if slot.mixer == "mamba":
+        s["mixer"] = ssm_lib.ssm_specs(cfg, layers)
+    else:
+        s["mixer"] = attn.attn_specs(cfg, slot.mixer, layers)
     if cfg.use_post_norm:
         s["mixer_post_norm"] = ParamSpec(L + (cfg.d_model,), la + ("embed",), init="zeros")
-    if cfg.d_ff:
+
+    has_mlp = not (slot.mlp == "dense" and cfg.d_ff == 0)
+    if has_mlp:
         s["mlp_norm"] = ParamSpec(L + (cfg.d_model,), la + ("embed",), init="zeros")
-        s["mlp"] = moe_lib.dense_mlp_specs(cfg.d_model, cfg.d_ff, layers)
+        if slot.mlp == "dense":
+            s["mlp"] = moe_lib.dense_mlp_specs(cfg.d_model, cfg.d_ff, layers)
+        elif slot.mlp == "moe":
+            s["mlp"] = moe_lib.moe_specs(cfg, layers)
+        else:  # moe_dense: arctic — parallel dense residual + MoE
+            s["mlp"] = {
+                "dense": moe_lib.dense_mlp_specs(cfg.d_model, cfg.d_ff, layers),
+                "moe": moe_lib.moe_specs(cfg, layers),
+            }
         if cfg.use_post_norm:
             s["mlp_post_norm"] = ParamSpec(L + (cfg.d_model,), la + ("embed",), init="zeros")
     return s
@@ -84,7 +102,7 @@ def _mlp_residual(p, h, cfg: ModelConfig):
 def slot_forward(p, h, positions, cfg: ModelConfig, slot: SlotSpec,
                  run: RunConfig):
     """Returns (h, cache, aux_loss)."""
-    _check_slot(slot)
+    check_slot(slot)
     u = rms_norm(h, p["mixer_norm"], cfg.norm_eps)
     u, cache = attn.gqa_forward(p["mixer"], u, positions, cfg, slot.mixer,
                                 impl=run.attn_impl, kv_block=run.kv_block,
@@ -101,7 +119,7 @@ def slot_forward(p, h, positions, cfg: ModelConfig, slot: SlotSpec,
 
 def slot_decode(p, h, pos, cache, cfg: ModelConfig, slot: SlotSpec,
                 run: RunConfig):
-    _check_slot(slot)
+    check_slot(slot)
     u = rms_norm(h, p["mixer_norm"], cfg.norm_eps)
     u, new_cache = attn.gqa_decode(p["mixer"], u, pos, cache, cfg, slot.mixer,
                                    impl=run.attn_impl)
@@ -113,7 +131,7 @@ def slot_decode(p, h, pos, cache, cfg: ModelConfig, slot: SlotSpec,
 def slot_cache_specs(cfg: ModelConfig, slot: SlotSpec, layers: int, batch: int,
                      s_max: int, dtype: str = "bfloat16",
                      kv_quant: bool = False):
-    _check_slot(slot)
+    check_slot(slot)
     window = attn._window_for(cfg, slot.mixer)
     eff = min(s_max, window) if window else s_max
     return attn.attn_cache_specs(cfg, slot.mixer, layers, batch, eff, dtype,

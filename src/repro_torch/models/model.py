@@ -9,8 +9,12 @@ Parameters for slot ``i`` are stacked over ``num_cycles`` (dim 0), as in
 JAX; JAX's ``lax.scan`` over cycles is a Python loop over that dim here,
 and ``remat="block"`` recomputes each cycle in the backward pass
 (``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` of the cycle).
-Chunked prefill (``extend_step``), multi-codebook models and
-``first_k_dense`` preludes are not ported yet (ROADMAP A10, A11).
+``model_specs`` gives the parameter shapes of every architecture (the
+planner prices the full model); :func:`init_params`, which every entry
+point materializes through, refuses a model the port cannot run before
+any parameter exists.  Chunked prefill (``extend_step``), multi-codebook
+models, image prefixes, ``first_k_dense`` preludes and the slots other
+than ``("attn", "dense")`` are not ported yet (ROADMAP A10, A11).
 """
 from __future__ import annotations
 
@@ -20,11 +24,13 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import (RunConfig, slot_cache_specs,
-                                       slot_decode, slot_forward, slot_specs)
-from repro_torch.models.common import (ParamSpec, cross_entropy, rms_norm,
-                                       softcap, torch_dtype, tree_map)
+from repro_torch.configs.base import ModelConfig, SlotSpec
+from repro_torch.models.blocks import (RunConfig, check_slot,
+                                       slot_cache_specs, slot_decode,
+                                       slot_forward, slot_specs)
+from repro_torch.models.common import (ParamSpec, cross_entropy, materialize,
+                                       rms_norm, softcap, torch_dtype,
+                                       tree_map)
 
 
 def _check_config(cfg: ModelConfig) -> None:
@@ -39,10 +45,33 @@ def _check_config(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless the port runs every layer of
+    ``cfg`` (forward, decode, caches)."""
     _check_config(cfg)
+    for slot in cfg.pattern:
+        check_slot(slot)
+
+
+def init_params(cfg: ModelConfig, seed: int, device):
+    """Random parameters of ``cfg`` (``materialize`` of its specs), after
+    :func:`check_ported`: a model the port cannot run is refused before
+    a byte is allocated."""
+    check_ported(cfg)
+    return materialize(model_specs(cfg), seed, device)
+
+
+def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     V, D = cfg.padded_vocab, cfg.d_model
-    s: Dict[str, Any] = {"embed": ParamSpec((V, D), ("vocab", "embed"))}
+    s: Dict[str, Any] = {}
+    if cfg.num_codebooks:
+        s["embed"] = ParamSpec((cfg.num_codebooks, V, D), (None, "vocab", "embed"))
+    else:
+        s["embed"] = ParamSpec((V, D), ("vocab", "embed"))
+    if cfg.first_k_dense:
+        # prelude layers: same mixer as slot 0, dense MLP at cfg.d_ff
+        pre_slot = SlotSpec(cfg.pattern[0].mixer, "dense")
+        s["prelude"] = slot_specs(cfg, pre_slot, cfg.first_k_dense)
     cycles = main_cycles(cfg)
     s["slots"] = {
         f"slot{i}": slot_specs(cfg, slot, cycles)
@@ -50,7 +79,10 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     s["final_norm"] = ParamSpec((D,), ("embed",), init="zeros")
     if not cfg.tie_embeddings:
-        s["lm_head"] = ParamSpec((D, V), ("embed", "vocab"))
+        if cfg.num_codebooks:
+            s["lm_head"] = ParamSpec((cfg.num_codebooks, D, V), (None, "embed", "vocab"))
+        else:
+            s["lm_head"] = ParamSpec((D, V), ("embed", "vocab"))
     return s
 
 
@@ -129,6 +161,7 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     """Full-sequence forward over ``batch["tokens"]`` (B,S).  Returns
     (logits, caches, aux_loss); caches are stacked (cycles, B, S, KV, hd)
     per slot."""
+    check_ported(cfg)
     params = cast_params(params, cfg)
     h = embed_tokens(params, batch, cfg)
     B, S = h.shape[:2]
@@ -194,6 +227,7 @@ def decode_step(params, tokens: torch.Tensor, pos: torch.Tensor, caches,
     is narrower than the compute dtype is first widened, the dtype JAX's
     one-hot cache write promotes it to, so the returned tree may hold new
     tensors."""
+    check_ported(cfg)
     params = cast_params(params, cfg)
     h = embed_tokens(params, {"tokens": tokens}, cfg)
     slot_names = [f"slot{i}" for i in range(len(cfg.pattern))]

@@ -38,7 +38,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.models.blocks import RunConfig
-from repro_torch.models.common import materialize, resolve_device
+from repro_torch.models.common import resolve_device
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.obs.trace import monotonic
 from repro_torch.serve.engine import greedy, place_prefill_cache
@@ -93,7 +93,7 @@ class ContinuousEngine:
                        else Tracer(enabled=True))
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         if params is None:
-            params = materialize(M.model_specs(cfg), seed, self.device)
+            params = M.init_params(cfg, seed, self.device)
         self.params = M.cast_params(params, cfg)
 
     def prefill_whole(self, req: ServeRequest):

@@ -22,7 +22,7 @@ from repro_torch.configs.base import ModelConfig, SlotSpec
 from repro_torch.models import model as M
 from repro_torch.models.attention import _window_for
 from repro_torch.models.blocks import RunConfig
-from repro_torch.models.common import materialize, resolve_device
+from repro_torch.models.common import resolve_device
 from repro_torch.obs import MetricsRegistry, Tracer
 
 
@@ -106,7 +106,7 @@ class Engine:
                        else Tracer(enabled=True))
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         if params is None:
-            params = materialize(M.model_specs(cfg), seed, self.device)
+            params = M.init_params(cfg, seed, self.device)
         self.params = M.cast_params(params, cfg)
 
     def generate(self, prompts: np.ndarray, n_new: int, *,

@@ -30,7 +30,7 @@ from repro_torch.data.pipeline import Placement, PrefetchLoader
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import model as M
 from repro_torch.models.blocks import RunConfig
-from repro_torch.models.common import materialize, resolve_device
+from repro_torch.models.common import resolve_device
 from repro_torch.obs.trace import Tracer, monotonic
 from repro_torch.optim import adamw as opt_lib
 
@@ -138,7 +138,7 @@ def train(cfg: ModelConfig, run: RunConfig, opt: opt_lib.OptConfig, *,
     devices = list(device) if isinstance(device, (list, tuple)) else [device]
     devices = [resolve_device(d) for d in devices]
     if params is None:
-        params = materialize(M.model_specs(cfg), seed, devices[0])
+        params = M.init_params(cfg, seed, devices[0])
     if opt_state is None:
         opt_state = opt_lib.init_state(opt, params)
 

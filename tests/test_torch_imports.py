@@ -1,15 +1,16 @@
-"""Import guard: the port (``src/repro_torch``) and ``chip_smoke.py`` import
-neither JAX (nor ``ml_dtypes``, which the card's machine lacks) nor
-anything of the JAX package ``repro``; they keep their own copies of what
-they need.  A static AST scan, so it also covers imports
-inside functions."""
+"""Import guard: the port (``src/repro_torch``), its benchmarks
+(``benchmarks/torch_*.py``) and ``chip_smoke.py`` import neither JAX (nor
+``ml_dtypes``, which the card's machine lacks) nor anything of the JAX
+package ``repro``; they keep their own copies of what they need.  A
+static AST scan, so it also covers imports inside functions."""
 import ast
 from pathlib import Path
 
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+BENCHMARKS = sorted((REPO / "benchmarks").glob("torch_*.py"))
+FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + BENCHMARKS + [
     REPO / "chip_smoke.py"]
 
 
@@ -41,6 +42,7 @@ def test_no_jax_or_repro_imports(path):
 
 def test_scan_sees_every_module():
     assert len(FILES) > 20 and (REPO / "chip_smoke.py").exists()
+    assert len(BENCHMARKS) >= 10 and all(p in FILES for p in BENCHMARKS)
     assert _forbidden("repro.models") and _forbidden("jax.numpy")
     assert _forbidden("ml_dtypes")
     assert not _forbidden("repro_torch.models")

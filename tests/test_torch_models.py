@@ -265,8 +265,12 @@ def test_unported_paths_raise():
     _, tcfg = _cfgs()
     with pytest.raises(NotImplementedError):
         tattn.attn_cache_specs(tcfg, "attn", 1, 1, 8, kv_quant=True)
+    # the specs of every arch exist (the planner prices them); a model the
+    # port cannot run is refused before any parameter is materialized
+    deepseek = get_config("deepseek-v2-236b").reduced()
+    assert TM.model_specs(deepseek)["slots"]["slot0"]["mixer"]["wq_down"]
     with pytest.raises(NotImplementedError):
-        TM.model_specs(get_config("deepseek-v2-236b").reduced())
+        TM.init_params(deepseek, 0, "cpu")
     with pytest.raises(ValueError):
         tattn.attention(None, None, None, None, None, scale=1.0, impl="pallas")
     swa = tcfg.replace(attn_window_override=8)

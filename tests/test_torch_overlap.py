@@ -353,13 +353,16 @@ def test_h100_chip_and_clusters():
 
 
 def test_trainer_prices_cards_on_nvlink():
-    """On cards with no topology or link_bw, Lemma 3.2 is priced on the
-    H100 node's NVLink tier; on the CPU, or with a topology, on JAX's
-    4e9 default; an explicit link_bw always wins."""
+    """On cards with no link_bw, Lemma 3.2 is priced on the topology's
+    narrowest spanning tier, or on the H100 node's NVLink tier when there
+    is no topology; on the CPU on JAX's 4e9 default; an explicit link_bw
+    always wins."""
     cuda = [torch.device("cuda", 0), torch.device("cuda", 1)]
     assert default_link_bw(cuda, None) == 450e9
     assert default_link_bw(["cpu"], None) == DEFAULT_LINK_BW == 4e9
-    assert default_link_bw(cuda, thw.get_cluster("h100-2x8")) == 4e9
+    assert default_link_bw(cuda, thw.get_cluster("h100-8")) == 450e9
+    assert default_link_bw(cuda, thw.get_cluster("h100-2x8")) == 50e9
+    assert default_link_bw(["cpu"], thw.get_cluster("h100-2x8")) == 4e9
     tr, _, rep = _train(2, steps=3)
     assert tr.link_bw == rep.link_bw == 4e9
     tr, _, rep = _train(2, steps=3, link_bw=450e9)
@@ -376,8 +379,6 @@ def test_trainer_prices_cards_on_nvlink():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(pipe=2), "Next 3"),
-    (dict(use_planner=True), "Next 5"),
-    (dict(dp=2), "Next 5"),  # sync="auto" with dp > 0
     (dict(tune=True), "Next 6"),
 ])
 def test_unported_options_name_their_roadmap_item(kw, item):

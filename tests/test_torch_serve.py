@@ -156,9 +156,10 @@ def test_session_serve_measured_keys_match_jax(mode):
     for sect in ("scheduler", "kv_cache", "latency_s", "throughput", "slo"):
         assert _keys(tm["serving"][sect]) == _keys(jm["serving"][sect])
     assert _keys(tm["serving"]["replica_lemma"]) == \
-        _keys(jm["serving"]["replica_lemma"], drop=("predicted",))
-    assert _keys(tm["serving"]["replica_lemma"]["measured"]) == \
-        _keys(jm["serving"]["replica_lemma"]["measured"])
+        _keys(jm["serving"]["replica_lemma"])
+    for half in ("predicted", "measured"):
+        assert _keys(tm["serving"]["replica_lemma"][half]) == \
+            _keys(jm["serving"]["replica_lemma"][half])
     assert _keys(tm["per_request"][0]) == _keys(jm["per_request"][0])
     validate_metrics(tm["metrics"])
     for sect in ("counters", "gauges", "histograms"):

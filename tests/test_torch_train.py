@@ -566,10 +566,7 @@ def test_session_train_single_device_returns_jax_keys():
     assert Session(spec, device="cpu").bench().kind == "bench"
 
 
-@pytest.mark.parametrize("kw", [
-    dict(use_planner=True), dict(tune=True), dict(pipe=2),
-    dict(dp=2, sync="all_reduce", use_planner=True),
-    dict(dp=2)])  # dp > 0 with sync="auto"
+@pytest.mark.parametrize("kw", [dict(tune=True), dict(pipe=2)])
 def test_options_not_ported_raise(kw):
     spec = JobSpec(arch="granite-3-2b", steps=2, batch=4, seq=8, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
