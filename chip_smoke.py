@@ -126,6 +126,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
    DataParallelTrainer.from_plan at dp = 1 (4 layers, NCCL on a
    TCPStore, the planned run, 3 steps), bitwise equal to the one-rank
    trainer built with the plan's schedule by name.
+12. tune — the paper's closed loop through Session.tune(), the one path of
+   the system's entry points that runs all four kernels.  Each step zeroes
+   the four launch counters before and reads them after.  (1)
+   Session(JobSpec(granite-3-2b, reduced=False, batch 2, seq 512, tune,
+   tune_steps 3, a calibration cache in a temporary directory under build/
+   that the phase deletes)).tune() at full width (40 layers): the report
+   valid; launches exactly B1 3, B2 3, B3 3, B4 9 (bench_kernels alone
+   launches them: the measured training steps and the re-plan launch
+   none); no kernel variant in errors, and each held to its plain variant
+   as in phase 7; the chosen minibatch the m_bound edge and the chosen
+   microbatch a fresh max_microbatch for the production job (train_4k on
+   h100-8); replan.calibrated_closer true; the cache holding the key
+   (backend/cluster/config).  It prints each op's pick and times, the
+   achieved FLOP/s and its share of the data sheet, the triad bandwidth,
+   the best measured step, the executed and production step estimates
+   with and without calibration, max_memory_allocated() and each stage's
+   span.  (2) A second session on the same cache: from_cache true, no
+   measure span, the bench stage's 18 launches again.  (3) train() of the
+   first session (2 steps) adopts the tuned attention and microbatch
+   min(chosen, 2), carries the tuning section and launches no kernel.  (4)
+   Session(JobSpec(granite-3-2b, train_4k), calibration=...).plan() is
+   priced on "h100-sxm+cal"; it prints its est_step_time beside the data
+   sheet's.
 
 Then it prints the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line, and, last, the
@@ -664,10 +687,39 @@ def mamba_layer_check(torch, ssm, materialize, get_config, ssd_k):
           f"{dev_ms(t['auto'][1])})", flush=True)
 
 
+TUNE_CHUNKS = (32, 64, 128)  # bench_kernels' default scan chunks
+# bench_kernels' launches at its defaults (seq 128, repeats 2): one warm-up
+# and two timed calls a kernel variant, the scan at three chunks
+TUNE_LAUNCHES = {"flash_attention": 3, "decode_attention": 3,
+                 "paged_decode_attention": 3, "ssd_scan": 9}
+
+
+def hold_variants(torch, ops, chunks, label) -> None:
+    """Every kernel variant of every tunable op against its plain variant
+    on the same inputs (bf16 tolerance; the scan's fp32 state at 1e-3).
+    Called outside a counted window: these launches count nowhere."""
+    for op in ops.TUNABLE_OPS:
+        inputs = ops.tune_inputs(op, seq=128, device="cuda")
+        cands = ops.tune_candidates(op, ssd_chunks=chunks)
+        plain = cands["gather_ref" if "gather_ref" in cands else "ref"](*inputs)
+        for name, fn in cands.items():
+            if not name.startswith("kernel"):
+                continue
+            got = fn(*inputs)
+            sync(torch)
+            pairs = zip(got, plain) if isinstance(got, tuple) else [(got, plain)]
+            for i, (g_, w_) in enumerate(pairs):
+                tol = (1e-3, 1e-3) if g_.dtype == torch.float32 else (TOL, TOL)
+                ok, err = within(g_, w_, *tol)
+                if not ok:
+                    fail(f"{label}: {op}/{name} output {i} differs from the "
+                         f"plain variant by {err}")
+
+
 def tune_phase(torch, autotune, ops, wrappers):
     """bench_kernels on the card with every launch counter zeroed just
     before and read just after; returns the launches."""
-    repeats, chunks = 2, (32, 64, 128)
+    repeats, chunks = 2, TUNE_CHUNKS
     for fn in wrappers.values():
         fn.launches = 0
     res = autotune.bench_kernels(seq=128, repeats=repeats, ssd_chunks=chunks,
@@ -687,22 +739,7 @@ def tune_phase(torch, autotune, ops, wrappers):
             "ssd_scan": per_variant * len(chunks)}
     if launches != want:
         fail(f"tune: launches {launches} != {want}")
-    for op in ops.TUNABLE_OPS:  # the kernel variants against the plain ones
-        inputs = ops.tune_inputs(op, seq=128, device="cuda")
-        cands = ops.tune_candidates(op, ssd_chunks=chunks)
-        plain = cands["gather_ref" if "gather_ref" in cands else "ref"](*inputs)
-        for name, fn in cands.items():
-            if not name.startswith("kernel"):
-                continue
-            got = fn(*inputs)
-            sync(torch)
-            pairs = zip(got, plain) if isinstance(got, tuple) else [(got, plain)]
-            for i, (g_, w_) in enumerate(pairs):
-                tol = (1e-3, 1e-3) if g_.dtype == torch.float32 else (TOL, TOL)
-                ok, err = within(g_, w_, *tol)
-                if not ok:
-                    fail(f"tune: {op}/{name} output {i} differs from the "
-                         f"plain variant by {err}")
+    hold_variants(torch, ops, chunks, "tune")
     print(f"[tune] launches {launches}; every kernel variant within "
           "tolerance of its plain variant", flush=True)
     print(f"[tune] host_microbench {json.dumps(autotune.host_microbench())}")
@@ -1282,6 +1319,167 @@ def plan_phase(torch, wrappers) -> None:
     print("[plan] no kernel launched on the planned paths", flush=True)
 
 
+def tune_session_phase(torch, wrappers) -> None:
+    """Phase 12: Session.tune() (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.api import JobSpec, Session, validate_report
+    from repro_torch.core import memory_model as mm
+    from repro_torch.core.autotune import Calibration, cached_calibration
+    from repro_torch.kernels import ops
+
+    def counted(fn):
+        """fn() with the four launch counters zeroed just before and read
+        just after."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        return out, {name: w.launches for name, w in wrappers.items()}
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="tune_", dir=root))
+    cache = tmp / "calibration_cache.json"
+    spec = JobSpec(arch="granite-3-2b", reduced=False, batch=2, seq=512,
+                   steps=2, log_every=1, tune=True, tune_steps=3,
+                   tune_cache=str(cache))
+    t_phase = time.perf_counter()
+    try:
+        # 12.1: the tune run, full width
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        session = Session(spec, device="cuda")
+        rep, launches = counted(session.tune)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        validate_report(rep.to_dict())
+        if launches != TUNE_LAUNCHES:
+            fail(f"Session.tune(): launches {launches} != {TUNE_LAUNCHES} "
+                 "(only the bench stage may launch the kernels)")
+        t = rep.measured["tuning"]
+        for op, entry in t["kernels"].items():
+            bad = {n: e for n, e in entry["errors"].items()
+                   if n.startswith("kernel")}
+            if bad:
+                fail(f"Session.tune(): {op} kernel variants raised: {bad}")
+            print(f"[tune-session] {op}: chosen {entry['chosen']}; times "
+                  + ", ".join(f"{n} {v * 1e3:.4f} ms"
+                              for n, v in entry["times_s"].items()),
+                  flush=True)
+        hold_variants(torch, ops, TUNE_CHUNKS, "Session.tune()")
+        mb = t["minibatch"]
+        chosen, hbm = mb["chosen"], mb["m_gpu_bytes"]
+        if not (mm.m_bound(mm.ALEXNET, chosen, hbm) >= 0
+                > mm.m_bound(mm.ALEXNET, chosen + 1, hbm)):
+            fail(f"minibatch {chosen} is not the m_bound edge on {hbm} B")
+        p = session.resolved_plan
+        mesh = session.mesh_spec
+        fresh = mm.max_microbatch(
+            session.cfg_full, session.shape, dp=mesh.dp, tp=mesh.tp,
+            fsdp=p.fsdp, attn_impl=p.attn_impl, remat=p.remat,
+            seq_parallel=p.seq_parallel, hbm_bytes=mesh.chip.hbm_bytes,
+            opt_kind=p.opt_kind)
+        if mb["microbatch"]["chosen"] != fresh:
+            fail(f"microbatch {mb['microbatch']['chosen']} != "
+                 f"max_microbatch {fresh} for the production job")
+        r, cal = t["replan"], t["calibration"]
+        if not r["calibrated_closer"]:
+            fail(f"the calibrated estimate {r['est_step_time_calibrated_s']} "
+                 f"s is not closer to the measured {r['measured_step_s']} s "
+                 f"than the data sheet's {r['est_step_time_uncalibrated_s']}")
+        key = Calibration.from_dict(cal).key
+        if key.count("/") != 2 or cached_calibration(cache, key) is None:
+            fail(f"the cache does not hold {key!r}")
+        m, prod = rep.measured, r["production"]
+        print(f"[tune-session] Session.tune(), granite-3-2b full width (40 "
+              f"layers), measured at batch 2 x seq 512, 3 steps (auto, no "
+              f"remat): launches {launches}; minibatch* {chosen} (m_bound "
+              f"edge on {hbm:.4g} B), microbatch* "
+              f"{mb['microbatch']['chosen']} (max_microbatch {fresh}, the "
+              f"plan's {mb['microbatch']['plan_microbatch']}); best step "
+              f"{m['best_step_s']:.4f} s (compute {m['best_compute_s']:.4f}, "
+              f"mean {m['mean_step_s']:.4f}); achieved_flops "
+              f"{cal['achieved_flops']:.4e} FLOP/s, flops_efficiency "
+              f"{r['flops_efficiency']:.4f} of {mesh.chip.peak_flops:.4g}; "
+              f"matmul_flops (fp32, n 512) {cal['matmul_flops']:.4e}; hbm_bw "
+              f"(triad) {cal['hbm_bw']:.4e} B/s; executed step estimate "
+              f"{r['est_step_time_uncalibrated_s']:.4f} s data sheet, "
+              f"{r['est_step_time_calibrated_s']:.4f} s calibrated; "
+              f"train_4k estimate {prod['uncalibrated']['est_step_time']:.4f}"
+              f" s data sheet, {prod['calibrated']['est_step_time']:.4f} s "
+              f"calibrated; key {key}; peak {peak / 1e9:.2f} GB "
+              f"(max_memory_allocated); {wall:.1f} s", flush=True)
+        spans = {name: round(session.last_tracer.total_s(name), 4)
+                 for name in ("bench_kernels", "measure", "tune_overlap",
+                              "replan")}
+        print(f"[tune-session] spans (s) {json.dumps(spans)}", flush=True)
+
+        # 12.2: a second session on the same cache
+        again = Session(spec, device="cuda")
+        rep2, launches2 = counted(again.tune)
+        validate_report(rep2.to_dict())
+        if not rep2.measured.get("from_cache"):
+            fail("the second session did not read the cache")
+        if again.last_tracer.events("measure"):
+            fail("the cached session measured again")
+        if launches2 != TUNE_LAUNCHES:
+            fail(f"cached Session.tune(): launches {launches2} != "
+                 f"{TUNE_LAUNCHES}")
+        print(f"[tune-session] cached session: from_cache "
+              f"{rep2.measured['from_cache']}, no measure span, launches "
+              f"{launches2}", flush=True)
+        del again, rep2
+
+        # 12.3: train() adopts the tuned knobs
+        trep, launches3 = counted(session.train)
+        validate_report(trep.to_dict())
+        run, _ = session.build_run_opt()
+        want_attn = ("dense" if t["kernels"]["flash_attention"]["chosen"]
+                     == "ref" else "auto")
+        want_mb = max(min(mb["microbatch"]["chosen"], spec.batch), 1)
+        if (run.attn_impl, run.microbatch) != (want_attn, want_mb):
+            fail(f"tuned run ({run.attn_impl}, {run.microbatch}) != "
+                 f"({want_attn}, {want_mb})")
+        if "tuning" not in trep.measured:
+            fail("the tuned train report holds no tuning section")
+        if any(launches3.values()):
+            fail(f"the tuned train() launched kernels: {launches3}")
+        losses = trep.measured["losses"]
+        if not all(map(math.isfinite, losses)):
+            fail(f"tuned losses {losses}: not finite")
+        print(f"[tune-session] train() with the tuned knobs (attn_impl "
+              f"{run.attn_impl}, microbatch {run.microbatch}, remat "
+              f"{run.remat}): losses {[round(x, 4) for x in losses]}; "
+              f"tokens/s {trep.measured['tokens_per_s']:.1f}; launches "
+              f"{launches3}", flush=True)
+        del trep
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 12.4: the production plan priced on the measured constants
+    prod_spec = JobSpec(arch="granite-3-2b", shape="train_4k")
+    calibrated = Session(prod_spec, calibration=session.tuned.calibration,
+                         device="cuda").plan()
+    datasheet = Session(prod_spec, device="cuda").plan()
+    validate_report(calibrated.to_dict())
+    chip = calibrated.plan["topology"]["chip"]
+    if chip != "h100-sxm+cal":
+        fail(f"the calibrated plan is priced on {chip}, not h100-sxm+cal")
+    print(f"[tune-session] calibrated plan, granite-3-2b full, train_4k on "
+          f"h100-8 (chip {chip}): est_step_time "
+          f"{calibrated.plan['est_step_time']:.4f} s (microbatch "
+          f"{calibrated.plan['microbatch']}, {calibrated.plan['attn_impl']}, "
+          f"remat {calibrated.plan['remat']}); data sheet "
+          f"{datasheet.plan['est_step_time']:.4f} s; "
+          f"benchmarks/torch_plan_check.py measured 57.0-59.0 s a step at "
+          f"this shape with block remat (H100 80GB HBM3, 700 W); phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del session
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
 
@@ -1489,6 +1687,9 @@ def main() -> None:
 
     # 11. plan -------------------------------------------------------------------
     plan_phase(torch, wrappers)
+
+    # 12. tune (Session.tune) ----------------------------------------------------
+    tune_session_phase(torch, wrappers)
 
     leaked = sorted(n for n in sys.modules
                     if n.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",

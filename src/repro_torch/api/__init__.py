@@ -1,6 +1,6 @@
 """The port's facade: ``JobSpec`` -> ``Session.plan()`` / ``.dryrun()`` /
-``.train()`` / ``.bench()`` / ``.serve()`` -> ``Report``, every report
-checked by ``validate_report``."""
+``.tune()`` / ``.train()`` / ``.bench()`` / ``.serve()`` -> ``Report``,
+every report checked by ``validate_report``."""
 from repro_torch.api.report import (KINDS, SCHEMA_ID, TUNING_SCHEMA_ID,
                                     Report, validate_report)
 from repro_torch.api.session import Session

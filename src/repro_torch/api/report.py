@@ -13,9 +13,8 @@ other's reports).
      "meta":      free-form provenance}
 
 ``validate_report`` is the shared schema check: every report the port's
-``Session`` returns has passed it.  The tuning section's check is the
-schema only; the port's ``Session.tune()`` is not ported yet (ROADMAP
-Next 6).
+``Session`` returns has passed it, ``Session.tune()``'s tuning section
+(``repro.api/tuning/v1``) too.
 """
 from __future__ import annotations
 

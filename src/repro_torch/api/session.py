@@ -1,6 +1,6 @@
 """Session — resolve a :class:`JobSpec` through the planner and execute it
-(the port of ``repro.api.session``; ``plan``, ``dryrun``, ``train``,
-``bench`` and ``serve``).
+(the port of ``repro.api.session``; ``plan``, ``dryrun``, ``tune``,
+``train``, ``bench`` and ``serve``).
 
 The planner (``core/planner.py``) sizes the job first, always on the FULL
 architecture and the spec's production shape and mesh: microbatch,
@@ -34,21 +34,32 @@ from it.  ``bench`` is the same run reported as ``bench``.
 kernels (``attn_impl="kernel"``), and reports the replica lemma's
 prediction beside its measurement.
 
+``Session.tune()`` closes the loop on measurements
+(``core/autotune.py``): it times the kernel variants (the four CUDA
+kernels against their plain versions), measures short training steps,
+fits a ``Calibration``, runs the paper's minibatch procedure and re-plans
+on the measured constants.  With ``spec.tune``, ``train`` and ``bench``
+adopt its attention and microbatch; a session built with
+``calibration=`` prices every plan and prediction on measured constants.
+Under ``torchrun`` every rank measures and adopts rank 0's choices.
+
 Every method returns a validated :class:`Report` whose ``measured`` dict
 has the JAX package's keys.  Options whose modules are not ported
-(``pipe > 1`` for training, ``tune``) raise ``NotImplementedError``
-naming their ROADMAP item; nothing falls back.
+(``pipe > 1`` for training) raise ``NotImplementedError`` naming their
+ROADMAP item; nothing falls back.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from functools import partial
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.api.report import SERVING_SCHEMA_ID, Report
 from repro_torch.api.spec import JobSpec
@@ -64,6 +75,9 @@ from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.obs.trace import monotonic
 from repro_torch.optim.adamw import OptConfig
 
+if TYPE_CHECKING:  # core.autotune pulls in the kernels and the trainer
+    from repro_torch.core.autotune import Calibration, TuneResult
+
 # Lemma 3.1 efficiency/speedup are reported for these device counts (the
 # paper's Fig. 4 sweep)
 LEMMA31_G = (2, 4, 8, 16)
@@ -76,7 +90,7 @@ class Session:
     for ``cpu``; ``cuda`` without a card raises here)."""
 
     def __init__(self, spec: JobSpec, *, config: Optional[ModelConfig] = None,
-                 device="cuda"):
+                 calibration: Optional["Calibration"] = None, device="cuda"):
         self.spec = spec
         self.device = resolve_device(device)
         self.cfg_full = get_config(spec.arch)
@@ -88,8 +102,19 @@ class Session:
         self.cluster: ClusterSpec = get_cluster(
             spec.topology or MESH_CLUSTERS[spec.mesh])
         self.mesh_spec = MeshSpec.from_cluster(self.cluster)
+        # a Calibration (core.autotune) re-prices the mesh on measured
+        # constants: every plan and prediction this session emits uses them
+        self.calibration = calibration
+        if calibration is not None:
+            self.mesh_spec = calibration.apply(self.mesh_spec)
+            self.cluster = self.mesh_spec.topology
         self._config_override = config is not None
         self._plan: Optional[Plan] = None
+        self._tuned: Optional["TuneResult"] = None
+        # under torchrun: this process's rank and the job's store, made
+        # once; each trainer built on it takes keys under a prefix of its own
+        self._rank_place: Optional[Dict[str, Any]] = None
+        self._runs = 0
         # telemetry of the last measured run, inspectable afterwards
         self.last_tracer: Optional[Tracer] = None
         self.last_metrics: Optional[MetricsRegistry] = None
@@ -109,10 +134,18 @@ class Session:
 
     # ------------------------------------------------------------------
     def _overlap_kwargs(self) -> Dict[str, Any]:
-        """The overlap knobs every planner and pricing call shares (no
-        calibration in the port yet: the ideal hideable window)."""
+        """The overlap knobs every planner and pricing call shares: the
+        spec's ``sync_overlap``/``bucket_mb``, with the hideable window
+        derated to the *measured* overlap fraction when a calibration
+        carries one."""
+        eff = 1.0
+        if self.calibration is not None and self.calibration.bucket_mb > 0:
+            # bucket_mb > 0 marks a *ran* overlap sweep; its fraction is
+            # the measurement even when it measured 0.0 (no hiding
+            # achieved) — do not fall back to the ideal window then
+            eff = self.calibration.overlap_fraction
         return dict(sync_overlap=self.spec.sync_overlap,
-                    bucket_mb=self.spec.bucket_mb, overlap_efficiency=1.0)
+                    bucket_mb=self.spec.bucket_mb, overlap_efficiency=eff)
 
     @property
     def resolved_plan(self) -> Plan:
@@ -125,16 +158,40 @@ class Session:
                                  **self._overlap_kwargs())
         return self._plan
 
+    @property
+    def tuned(self) -> "TuneResult":
+        """The autotuner's result for this spec (runs the microbenchmarks
+        and the calibration on first access; kept for the session).  Its
+        ``dp >= 2`` trainers are built as :meth:`_trainer` builds them:
+        every rank in this process, one thread each, or, under
+        ``torchrun``, this process's rank, which adopts rank 0's choices
+        (rank 0 alone writes the cache)."""
+        if self._tuned is None:
+            from repro_torch.core import autotune
+
+            spec = self.spec
+            place: Dict[str, Any] = {"device": self.device}
+            rank = self._torchrun_rank() if spec.dp else None
+            if rank is not None:
+                place = dict(rank, device=rank["devices"][0],
+                             store=dist.PrefixStore("tune", rank["store"]))
+            elif spec.dp >= 2:
+                place["devices"] = self._dp_devices()
+            tracer, metrics = self._make_obs()
+            self._tuned = autotune.autotune(
+                self.cfg, self.cfg_full, self.shape, self.mesh_spec,
+                batch=spec.batch, seq=spec.seq, steps=spec.tune_steps,
+                dp=spec.dp, seed=spec.seed, cache_path=spec.tune_cache,
+                tracer=tracer, metrics=metrics, **place)
+        return self._tuned
+
     def build_run_opt(self) -> Tuple[RunConfig, OptConfig]:
         """RunConfig/OptConfig for this spec: the plan's knobs when
         ``use_planner`` (its attention as ``dense`` or ``auto``, its remat,
         its microbatch capped at the batch, its optimizer), else the JAX
-        package's defaults."""
+        package's defaults; then, with ``spec.tune``, the measured knobs
+        (the tuned attention and the largest feasible microbatch)."""
         spec = self.spec
-        if spec.tune:
-            raise NotImplementedError(
-                "tune: the autotuner beyond bench_kernels is not ported yet "
-                "(ROADMAP Next 6, the rest of Session.tune())")
         warmup = max(spec.steps // 10, 1)
         if spec.use_planner:
             p = self.resolved_plan
@@ -147,6 +204,14 @@ class Session:
             run = RunConfig(attn_impl="auto", remat="block")
             opt = OptConfig(lr=spec.lr, warmup_steps=warmup,
                             total_steps=spec.steps)
+        if spec.tune:
+            t = self.tuned
+            # chosen_microbatch == 0 means the production job fits at no
+            # microbatch — fall back to the most frugal setting (1), never
+            # to 0 (RunConfig's "no accumulation", the *maximal* footprint)
+            run = dataclasses.replace(
+                run, attn_impl=t.attn_impl(),
+                microbatch=max(min(t.chosen_microbatch, spec.batch), 1))
         return run, opt
 
     # ------------------------------------------------------------------
@@ -181,6 +246,27 @@ class Session:
     # ------------------------------------------------------------------
     # Measured kinds
     # ------------------------------------------------------------------
+    def tune(self) -> Report:
+        """Run the closed-loop autotuner (``core.autotune``): time the
+        kernel variants, measure short trainer steps, calibrate the
+        cluster constants, run the paper's minibatch and algorithm
+        procedure, and re-plan on the measured numbers.  Returns a Report
+        of kind ``tune`` whose ``measured["tuning"]`` section carries the
+        ``repro.api/tuning/v1`` schema."""
+        res = self.tuned
+        measured: Dict[str, Any] = dict(res.measured)
+        measured["tuning"] = res.section()
+        if self.last_metrics is not None:
+            measured["metrics"] = self.last_metrics.section()
+        meta: Dict[str, Any] = {}
+        rank = self._rank_place["rank"] if self._rank_place else None
+        if rank is not None:  # one process per rank: rank 0 writes
+            meta["process"] = {"rank": rank, "world": self.spec.dp}
+        if not rank and self.last_tracer is not None:
+            meta.update(self._save_trace("tune", self.last_tracer))
+        return self._report("tune", measured, self._predicted(),
+                            meta_extra=meta)
+
     def train(self) -> Report:
         """Run the training loop (``spec.dp == 0``) or the data-parallel
         trainer (``spec.dp > 0``)."""
@@ -205,15 +291,41 @@ class Session:
                 "(distributed/pipeline.py) is not ported yet (ROADMAP Next 3)")
 
     def _dp_devices(self) -> List[torch.device]:
-        """One device per rank: ``cuda:0..dp-1``, or the CPU for every
-        rank when the session runs on the CPU."""
-        dp = self.spec.dp
-        if self.device.type == "cpu":
-            return [self.device] * dp
-        n = torch.cuda.device_count()
-        if n < dp:
-            raise RuntimeError(f"dp={dp} but only {n} devices visible")
-        return [torch.device("cuda", i) for i in range(dp)]
+        """One device per rank (``distributed.trainer.rank_devices``):
+        ``cuda:0..dp-1``, or the CPU for every rank when the session runs
+        on the CPU."""
+        from repro_torch.distributed.trainer import rank_devices
+
+        return rank_devices(self.device, self.spec.dp)
+
+    def _torchrun_rank(self) -> Optional[Dict[str, Any]]:
+        """Under ``torchrun``: this process's one rank as the trainer's
+        placement keywords (``devices`` — ``cuda:LOCAL_RANK``, or the CPU
+        when the session runs there — ``rank``, ``world`` and the job's
+        ``TCPStore``, made once a session); None outside a ``torchrun``
+        job."""
+        from repro_torch.distributed.trainer import (torchrun_env,
+                                                     torchrun_store)
+
+        if self._rank_place is not None:
+            return self._rank_place
+        env = torchrun_env()
+        if env is None:
+            return None
+        if self.spec.dp != env.world:
+            raise ValueError(f"dp={self.spec.dp} but torchrun started "
+                             f"WORLD_SIZE={env.world} processes: run one "
+                             "process per rank (--nproc-per-node dp)")
+        dev = self.device
+        if dev.type == "cuda":
+            if env.local_rank >= torch.cuda.device_count():
+                raise RuntimeError(
+                    f"LOCAL_RANK {env.local_rank} but only "
+                    f"{torch.cuda.device_count()} cards visible")
+            dev = torch.device("cuda", env.local_rank)
+        self._rank_place = dict(devices=[dev], rank=env.rank,
+                                world=env.world, store=torchrun_store(env))
+        return self._rank_place
 
     def _trainer(self, run, opt, tracer, metrics):
         """The data-parallel trainer for ``spec.dp`` ranks (the
@@ -225,9 +337,7 @@ class Session:
         otherwise every rank, one thread each."""
         from repro_torch.distributed.async_ps import AsyncPSTrainer
         from repro_torch.distributed.overlap import DEFAULT_BUCKET_MB
-        from repro_torch.distributed.trainer import (DataParallelTrainer,
-                                                     torchrun_env,
-                                                     torchrun_store)
+        from repro_torch.distributed.trainer import DataParallelTrainer
 
         spec = self.spec
         kw = dict(compression=spec.compress,
@@ -249,22 +359,13 @@ class Session:
             else:
                 build = DataParallelTrainer
                 kw.update(strategy=spec.sync)
-        env = torchrun_env()
-        if env is None:
+        rank = self._torchrun_rank()
+        if rank is None:
             return build(self.cfg, run, opt, devices=self._dp_devices(), **kw)
-        if spec.dp != env.world:
-            raise ValueError(f"dp={spec.dp} but torchrun started "
-                             f"WORLD_SIZE={env.world} processes: run one "
-                             "process per rank (--nproc-per-node dp)")
-        dev = self.device
-        if dev.type == "cuda":
-            if env.local_rank >= torch.cuda.device_count():
-                raise RuntimeError(
-                    f"LOCAL_RANK {env.local_rank} but only "
-                    f"{torch.cuda.device_count()} cards visible")
-            dev = torch.device("cuda", env.local_rank)
-        return build(self.cfg, run, opt, devices=[dev], rank=env.rank,
-                     world=env.world, store=torchrun_store(env), **kw)
+        self._runs += 1
+        return build(self.cfg, run, opt, **dict(
+            rank, store=dist.PrefixStore(f"run{self._runs}", rank["store"])),
+            **kw)
 
     def _run_train(self, kind: str) -> Report:
         from repro_torch.train.loop import train as train_loop
@@ -307,6 +408,8 @@ class Session:
             measured["sync"] = sync_rep.as_dict()
         if async_rep is not None:
             measured["async_ps"] = async_rep.as_dict()
+        if spec.tune:  # the run adopted tuned knobs: record what they were
+            measured["tuning"] = self.tuned.section()
         measured["metrics"] = metrics.section()
         meta: Dict[str, Any] = {}
         if rank is not None:  # one process per rank: rank 0 writes
@@ -640,6 +743,12 @@ class Session:
                 "count": torch.cuda.device_count() if dev.type == "cuda" else 1,
             },
         }
+        if self.calibration is not None:
+            meta["calibration"] = {
+                "key": self.calibration.key,
+                "achieved_flops": self.calibration.achieved_flops,
+                "link_bw": self.calibration.link_bw,
+            }
         if (self.spec.topology and self.spec.dp
                 and self.spec.dp != self.cluster.n_chips):
             meta["topology_note"] = (

@@ -31,9 +31,24 @@ class Chip:
     hbm_bw: float  # bytes/s
     link_bw: float  # bytes/s per ICI/interconnect link
 
-    # a calibrated overlay (the JAX package's autotuner) carries this
-    # suffix on the chip's name; plans it priced name it in their topology
+    # a calibrated overlay (core.autotune.Calibration) carries this suffix
+    # on the chip's name; plans it priced name it in their topology
     CAL_SUFFIX = "+cal"
+
+    def scaled(self, *, peak_flops: Optional[float] = None,
+               hbm_bw: Optional[float] = None,
+               link_bw: Optional[float] = None) -> "Chip":
+        """A *calibrated* overlay of this chip: same identity, data-sheet
+        constants replaced by measured ones (``core.autotune``).  The name
+        gains a ``+cal`` marker so plans priced on measurements are
+        distinguishable from data-sheet plans."""
+        name = (self.name if self.name.endswith(self.CAL_SUFFIX)
+                else self.name + self.CAL_SUFFIX)
+        return replace(
+            self, name=name,
+            peak_flops=peak_flops if peak_flops else self.peak_flops,
+            hbm_bw=hbm_bw if hbm_bw else self.hbm_bw,
+            link_bw=link_bw if link_bw else self.link_bw)
 
     @property
     def calibrated(self) -> bool:

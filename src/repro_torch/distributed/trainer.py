@@ -94,6 +94,18 @@ DEFAULT_LINK_BW = 4e9
 GROUP_TIMEOUT = timedelta(seconds=300)
 
 
+def rank_devices(device, dp: int) -> List[torch.device]:
+    """One device per rank for an all-ranks trainer: ``cuda:0..dp-1``, or
+    ``device`` for every rank when it is the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return [dev] * dp
+    n = torch.cuda.device_count()
+    if n < dp:
+        raise RuntimeError(f"dp={dp} but only {n} devices visible")
+    return [torch.device("cuda", i) for i in range(dp)]
+
+
 def default_link_bw(devices, topology: Optional[ClusterSpec]) -> float:
     """Lemma 3.2's link bandwidth when the caller names none: on cards, the
     topology's narrowest spanning tier, or the NVLink of one H100 node

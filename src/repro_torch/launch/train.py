@@ -6,6 +6,7 @@
                [--compress none|bf16|int8|topk] [--topology 2x4]
                [--overlap --bucket-mb 4]
                [--staleness 2 --backup-workers 1 [--sync auto]]] \\
+        [--autotune [--tune-cache results/calibration_cache.json]] \\
         [--ckpt-dir DIR [--ckpt-every 50]] [--report-out PATH] [--device cuda]
 
     # one process per card (or per CPU rank with --device cpu)
@@ -24,11 +25,15 @@ bounded-staleness parameter server (``--sync auto`` is then the
 parameter server); otherwise ``--sync auto`` (the default) with ``--dp``
 runs the planner's schedule.  ``--plan`` prints the plan (priced on the
 H100 cluster the mesh names, or on ``--topology``) and runs with its
-attention, remat, microbatch and optimizer.  ``--ckpt-dir`` checkpoints
-every ``--ckpt-every`` steps (0: 50) and resumes from the newest complete
-step there.  Options whose modules are not ported (``--pipe``,
-``--autotune``) raise ``NotImplementedError``.  It prints the JAX
-launcher's summary lines and its JSON last line.
+attention, remat, microbatch and optimizer.  ``--autotune`` runs the
+closed-loop autotuner first (``Session.tune``: the kernel variants timed,
+short training steps measured, the hardware constants calibrated), prints
+its choices and adopts its attention and microbatch; the calibration
+persists in ``--tune-cache`` ('' disables it).  ``--ckpt-dir``
+checkpoints every ``--ckpt-every`` steps (0: 50) and resumes from the
+newest complete step there.  ``--pipe`` > 1, whose module is not ported,
+raises ``NotImplementedError``.  It prints the JAX launcher's summary
+lines and its JSON last line.
 """
 from __future__ import annotations
 
@@ -51,7 +56,8 @@ def build_spec(args) -> JobSpec:
         compress=args.compress, topology=args.topology,
         sync_overlap=args.overlap, bucket_mb=args.bucket_mb,
         staleness=args.staleness, backup_workers=args.backup_workers,
-        tune=args.autotune, ckpt_dir=args.ckpt_dir,
+        tune=args.autotune, tune_cache=args.tune_cache,
+        ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every or (50 if args.ckpt_dir else 0),
         trace_dir=args.trace_dir)
 
@@ -108,7 +114,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="named cluster topology (core.hardware.CLUSTERS, "
                          "e.g. 2x4); empty = flat")
     ap.add_argument("--autotune", action="store_true",
-                    help="closed-loop autotuner first (not ported: raises)")
+                    help="run the closed-loop autotuner first (time the "
+                         "kernel variants, calibrate the hardware "
+                         "constants) and adopt its knobs for the run")
+    ap.add_argument("--tune-cache", default="results/calibration_cache.json",
+                    help="calibration-cache JSON for --autotune "
+                         "('' disables persistence)")
     ap.add_argument("--report-out", default="",
                     help="write the Report JSON here")
     ap.add_argument("--trace-dir", default="",
@@ -137,6 +148,16 @@ def main(argv=None):
                                                     or args.backup_workers):
             print(f"sync resolved from planner: "
                   f"{sess.resolved_plan.sync_schedule}")
+    if args.autotune:
+        t = sess.tuned  # every rank measures; rank 0 reports
+        r = t.replan
+        if lead:
+            print(f"autotune: minibatch*={t.chosen_minibatch} (m_bound), "
+                  f"microbatch*={t.chosen_microbatch}, attn={t.attn_impl()}; "
+                  f"step predicted {r['est_step_time_calibrated_s']*1e3:.1f}ms "
+                  f"calibrated vs "
+                  f"{r['est_step_time_uncalibrated_s']*1e3:.3g}ms datasheet "
+                  f"(measured {r['measured_step_s']*1e3:.1f}ms)")
     rep = sess.train()
     if not lead:
         return

@@ -370,3 +370,44 @@ def test_data_parallel_trainer_over_nccl_matches_the_loop(cuda):
     _assert_trees_close(tr.params[0], p_loop, 2e-4)
     rep = tr.report()
     assert rep.dp == 1 and rep.predicted_comm_s == 0.0
+
+
+@pytest.mark.gpu
+def test_session_tune_on_card(cuda, tmp_path):
+    """Session.tune() on the card at a reduced size: only the bench stage
+    launches the kernels (one warm-up and two timed calls a variant, the
+    scan at three chunks), no kernel variant fails, the calibrated
+    estimate is the closer one, and the cache holds the torch-cuda key."""
+    from repro_torch.api import JobSpec, Session, validate_report
+    from repro_torch.core.autotune import Calibration, cached_calibration
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ssd_scan as ssd_k
+
+    wrappers = {"flash_attention": fa_k.flash_attention,
+                "decode_attention": dec_k.decode_attention,
+                "paged_decode_attention": dec_k.paged_decode_attention,
+                "ssd_scan": ssd_k.ssd_scan}
+    for w in wrappers.values():
+        w.launches = 0
+    cache = tmp_path / "cal.json"
+    spec = JobSpec(arch="granite-3-2b", batch=2, seq=64, steps=2,
+                   log_every=0, tune=True, tune_steps=2,
+                   tune_cache=str(cache))
+    sess = Session(spec, device="cuda")
+    rep = sess.tune()
+    validate_report(rep.to_dict())
+    assert {n: w.launches for n, w in wrappers.items()} == {
+        "flash_attention": 3, "decode_attention": 3,
+        "paged_decode_attention": 3, "ssd_scan": 9}
+    t = rep.measured["tuning"]
+    for entry in t["kernels"].values():
+        assert not {n for n in entry["errors"] if n.startswith("kernel")}
+    assert t["replan"]["calibrated_closer"]
+    key = Calibration.from_dict(t["calibration"]).key
+    assert key.startswith("torch-cuda/h100-8/")
+    assert cached_calibration(cache, key) is not None
+    for w in wrappers.values():
+        w.launches = 0
+    assert "tuning" in sess.train().measured
+    assert not any(w.launches for w in wrappers.values())

@@ -568,7 +568,17 @@ def test_session_train_single_device_returns_jax_keys():
 
 @pytest.mark.parametrize("kw", [dict(tune=True), dict(pipe=2)])
 def test_options_not_ported_raise(kw):
+    """pipe > 1 raises naming its ROADMAP item; tune is ported now, and a
+    tuned spec trains with the tuned attention and microbatch."""
     spec = JobSpec(arch="granite-3-2b", steps=2, batch=4, seq=8, **kw)
+    if kw.get("tune"):
+        sess = Session(spec, device="cpu")
+        rep = sess.train()
+        run, _ = sess.build_run_opt()
+        assert rep.measured["tuning"]["minibatch"]["microbatch"]["chosen"] \
+            == 7
+        assert run.microbatch == 4 and run.attn_impl in ("auto", "dense")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Session(spec, device="cpu").train()
 
