@@ -149,6 +149,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
    Session(JobSpec(granite-3-2b, train_4k), calibration=...).plan() is
    priced on "h100-sxm+cal"; it prints its est_step_time beside the data
    sheet's.
+13. pipeline — 1F1B pipeline parallelism, no kernel launches (counters
+   zeroed before, 0 after): (1) Session(JobSpec(granite-3-2b,
+   reduced=False, pipe 2, n_microbatch 4, batch 4, seq 512, 3
+   steps)).train() at full width (40 layers, 20 cycles a stage, both
+   stages on this card, the session's own sync, auto attention and block
+   remat): the report valid, every loss finite, bubble_model exactly
+   (p-1)/(m+p-1) = 0.2; it prints each stage's fwd and bwd time per
+   microbatch, the measured, model and serial bubble, the makespan, the
+   steady step wall (the loop's step span) beside train/step_s (the op
+   spans, sync and update), tokens/s and max_memory_allocated(); (2) the
+   PipelineTrainer (pipe 2, 4 microbatches, both stages on cuda:0)
+   against the DataParallelTrainer (dp 1, microbatch 1) at full width, 4
+   layers, fp32, attention-smoothed weights, 2 steps: every param within
+   2e-4 + 2e-4 * max |want|, or 2 * lr + 2e-4 where the root of AdamW's
+   bias-corrected second moment is below 100 * eps (C5's bound; whether
+   the params are bitwise equal is printed, not required); (3)
+   host_microbench()'s triad (16 fused passes a timed call) at 32 and
+   256 MiB an array, and one pass a call at 32 MiB, beside phase 12's
+   calibrated hbm_bw.
 
 Then it prints the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line, and, last, the
@@ -1478,6 +1497,135 @@ def tune_session_phase(torch, wrappers) -> None:
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     del session
     torch.cuda.empty_cache()
+    return cal["hbm_bw"]
+
+
+def pipeline_phase(torch, wrappers, triad_12: float) -> None:
+    """Phase 13: 1F1B pipeline parallelism (see the module docstring)."""
+    from repro_torch.api import JobSpec, Session, validate_report
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.autotune import host_microbench
+    from repro_torch.distributed.pipeline import PipelineTrainer
+    from repro_torch.distributed.trainer import DataParallelTrainer
+    from repro_torch.models import model as M
+    from repro_torch.models.blocks import RunConfig
+    from repro_torch.models.common import materialize, tree_items, tree_map
+    from repro_torch.optim.adamw import OptConfig
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    # 13.1: full width through the entry point a user calls, both stages
+    # on this one card
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # the session's own sync ("auto": the plan's choice); with one shard a
+    # stage the trainer syncs nothing, whatever the strategy
+    spec = JobSpec(arch="granite-3-2b", reduced=False, pipe=2,
+                   n_microbatch=4, batch=4, seq=512, steps=3, log_every=1)
+    session = Session(spec, device="cuda")
+    rep = session.train()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    validate_report(rep.to_dict())
+    m, pr = rep.measured, rep.measured["pipeline"]
+    losses = m["losses"]
+    hist = m["metrics"]["histograms"]["train/step_s"]
+    phases = m["step_times_mean"]
+    # the loop's step span: param_refresh, the ops and the gaps between
+    # them, sync and update (train/step_s sums only the op spans, sync
+    # and update, as JAX's _publish does)
+    step_wall = (phases["compute"] + phases["dist_update"]
+                 + phases["param_update"])
+    print(f"[pipeline] Session.train(pipe 2, n_microbatch 4), granite-3-2b "
+          f"full width ({LAYERS} layers, stage cut {pr['stage_cut']}, both "
+          f"stages on cuda:0), batch 4 x seq 512, 3 steps, auto attention + "
+          f"block remat, sync {m['sync']['strategy']}: losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    for s in range(pr["pipe"]):
+        print(f"[pipeline] stage {s}: fwd "
+              f"{[round(t * 1e3, 2) for t in pr['fwd_times_s'][s]]} ms, bwd "
+              f"{[round(t * 1e3, 2) for t in pr['bwd_times_s'][s]]} ms per "
+              f"microbatch (best of the steady steps)", flush=True)
+    print(f"[pipeline] bubble measured {pr['bubble_measured']:.4f} (the op "
+          f"times replayed through the 1F1B DAG), model "
+          f"{pr['bubble_model']:.4f}, serial {pr['bubble_serial']:.4f}; "
+          f"makespan {pr['makespan_s'] * 1e3:.1f} ms; steady step wall "
+          f"(the loop's step span) {step_wall * 1e3:.1f} ms; op spans + "
+          f"sync + update (train/step_s) p50 {hist['p50'] * 1e3:.1f} ms "
+          f"(min {hist['min'] * 1e3:.1f}, max {hist['max'] * 1e3:.1f}); "
+          f"steady step phases (s) {json.dumps(phases)}; tokens/s "
+          f"{m['tokens_per_s']:.1f} over the run (first step included); "
+          f"peak memory {peak / 1e9:.2f} GB (max_memory_allocated; "
+          f"reserved {reserved / 1e9:.2f} GB, {retries} allocator "
+          f"retries); phase wall {wall:.1f} s", flush=True)
+    if not all(map(math.isfinite, losses)):
+        fail(f"pipelined full-width losses {losses}: not finite")
+    if pr["bubble_model"] != 0.2:
+        fail(f"bubble_model {pr['bubble_model']} != (p-1)/(m+p-1) = 0.2")
+    del rep, session
+    torch.cuda.empty_cache()
+
+    # 13.2: the 1F1B trainer against the single-stage trainer, fp32
+    cfg = get_config("granite-3-2b").replace(num_layers=4, dtype="float32")
+    run = RunConfig(attn_impl="auto", remat="block")
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    p0 = smooth_attention(materialize(M.model_specs(cfg), 0, "cuda"), cfg)
+    pt = PipelineTrainer(cfg, run, opt, pipe=2, n_microbatch=4,
+                         devices=["cuda:0", "cuda:0"])
+    try:
+        res_p = pt.train(batch=4, seq=512, steps=2, log_every=0,
+                         params=tree_map(torch.clone, p0))
+    finally:
+        pt.close()
+    dp = DataParallelTrainer(cfg, RunConfig(attn_impl="auto", remat="block",
+                                            microbatch=1), opt,
+                             devices=["cuda:0"])
+    try:
+        res_d = dp.train(batch=4, seq=512, steps=2, log_every=0, params=p0)
+    finally:
+        dp.close()
+    # C5's bound: 2e-4 + 2e-4 * max |want|, and 2 * lr + 2e-4 where
+    # AdamW's normalized step turns on rounding (the bias-corrected second
+    # moment's root below 100 * eps)
+    bc2 = 1.0 - opt.b2 ** 2
+    sqrt_v = tree_map(lambda v: (v / bc2).sqrt(), dp.opt_states[0]["v"])
+    ok, worst, n_eps, worst_eps = adam_close(
+        tree_items, pt.params, dp.params[0], sqrt_v, scale=1.0, lr=opt.lr)
+    same = trees_equal(torch, tree_items, pt.params, dp.params[0])
+    print(f"[pipeline] PipelineTrainer (pipe 2, 4 microbatches, both stages "
+          f"on cuda:0) against DataParallelTrainer (dp 1, microbatch 1), "
+          f"granite-3-2b full width, 4 layers, fp32, 2 steps: losses "
+          f"{res_p.losses} vs {res_d.losses}; params max |diff| "
+          f"{worst:.3e} (limit 2e-4 + 2e-4 * max |want| per leaf), and "
+          f"{worst_eps:.3e} on the {n_eps} elements whose root second "
+          f"moment is below 100 * eps (limit 2 * lr + 2e-4); bitwise "
+          f"equal: {same} (printed, not required)", flush=True)
+    if not ok:
+        fail(f"the 1F1B trainer and the single-stage trainer differ by up "
+             f"to {worst} ({worst_eps} where AdamW turns on rounding)")
+    del pt, dp, p0
+    torch.cuda.empty_cache()
+    moved = {name: fn.launches for name, fn in wrappers.items()
+             if fn.launches}
+    if moved:
+        fail(f"phase 13 launched kernels: {moved}")
+    print("[pipeline] no kernel launched on the pipeline path", flush=True)
+
+    # 13.3: C6's triad beside phase 12's calibration, and one fused pass
+    # a timed call, where the fixed cost of the call (launch and
+    # synchronize) is about one pass's time at 32 MiB
+    triad = host_microbench()["triad_bw"]
+    big = host_microbench(copy_mb=256)["triad_bw"]
+    one = host_microbench(passes=1)["triad_bw"]
+    print(f"[pipeline] host_microbench triad {triad:.4e} B/s at 32 MiB an "
+          f"array (the calibration's), {big:.4e} B/s at 256 MiB (16 "
+          f"torch.add(u, v, alpha=2) passes a timed call, 12 bytes an "
+          f"element a pass); one pass a call {one:.4e} B/s at 32 MiB; "
+          f"phase 12's calibrated hbm_bw {triad_12:.4e} B/s", flush=True)
 
 
 def main() -> None:
@@ -1689,7 +1837,10 @@ def main() -> None:
     plan_phase(torch, wrappers)
 
     # 12. tune (Session.tune) ----------------------------------------------------
-    tune_session_phase(torch, wrappers)
+    triad_12 = tune_session_phase(torch, wrappers)
+
+    # 13. 1F1B pipeline parallelism ----------------------------------------------
+    pipeline_phase(torch, wrappers, triad_12)
 
     leaked = sorted(n for n in sys.modules
                     if n.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",

@@ -17,7 +17,10 @@ cluster in both packages), and the plan's ``topology.chip`` records what
 it was priced on.
 
 ``Session.train()`` runs the training loop on the session's device
-(``spec.dp == 0``) or the data-parallel trainer on ``spec.dp`` ranks (one
+(``spec.dp == 0``), the 1F1B ``PipelineTrainer`` when ``spec.pipe > 1``
+(``spec.dp`` or ``pipe`` entries in all, stage-major, driven by this one
+process; a card may hold several stages: on one card every stage shares
+it), or the data-parallel trainer on ``spec.dp`` ranks (one
 thread each, or, in a process ``torchrun`` started, this process's rank:
 ``cuda:LOCAL_RANK`` on the job's ``TCPStore``) — the bounded-staleness
 ``AsyncPSTrainer`` when the spec asks for staleness or backup workers,
@@ -44,9 +47,10 @@ adopt its attention and microbatch; a session built with
 Under ``torchrun`` every rank measures and adopts rank 0's choices.
 
 Every method returns a validated :class:`Report` whose ``measured`` dict
-has the JAX package's keys.  Options whose modules are not ported
-(``pipe > 1`` for training) raise ``NotImplementedError`` naming their
-ROADMAP item; nothing falls back.
+has the JAX package's keys (``pipeline`` for a pipelined run).  Options
+whose modules are not ported (``pipe > 1`` under ``torchrun``: one
+process a stage) raise ``NotImplementedError`` naming their ROADMAP item;
+nothing falls back.
 """
 from __future__ import annotations
 
@@ -96,6 +100,16 @@ class Session:
         self.cfg_full = get_config(spec.arch)
         self.cfg = config if config is not None else (
             self.cfg_full.reduced() if spec.reduced else self.cfg_full)
+        if spec.pipe > 1 and config is None and spec.reduced:
+            # reduced() keeps one layer cycle, nothing to cut into stages:
+            # deepen to two cycles a stage, as the JAX package does
+            from repro_torch.models.model import main_cycles
+
+            need = 2 * spec.pipe
+            if main_cycles(self.cfg) < need:
+                self.cfg = self.cfg.replace(
+                    num_layers=self.cfg.first_k_dense
+                    + need * len(self.cfg.pattern))
         self.shape = get_shape(spec.shape)
         # a named cluster pins the mesh geometry to its chip count (dp =
         # chips, tp = 1); the meshes name the H100 clusters
@@ -268,8 +282,9 @@ class Session:
                             meta_extra=meta)
 
     def train(self) -> Report:
-        """Run the training loop (``spec.dp == 0``) or the data-parallel
-        trainer (``spec.dp > 0``)."""
+        """Run the training loop (``spec.dp == 0``), the 1F1B pipeline
+        trainer (``spec.pipe > 1``) or the data-parallel trainer
+        (``spec.dp > 0``)."""
         return self._run_train("train")
 
     def bench(self) -> Report:
@@ -284,11 +299,14 @@ class Session:
                                       or self.spec.backup_workers))
 
     def _check_train_options(self) -> None:
+        from repro_torch.distributed.trainer import torchrun_env
+
         spec = self.spec
-        if spec.pipe > 1:
+        if spec.pipe > 1 and torchrun_env() is not None:
             raise NotImplementedError(
-                f"pipe={spec.pipe}: 1F1B pipeline parallelism "
-                "(distributed/pipeline.py) is not ported yet (ROADMAP Next 3)")
+                f"pipe={spec.pipe} under torchrun: one process a stage, "
+                "with point-to-point activation sends, is not ported yet "
+                "(ROADMAP Next 19); run the pipeline from one process")
 
     def _dp_devices(self) -> List[torch.device]:
         """One device per rank (``distributed.trainer.rank_devices``):
@@ -367,6 +385,26 @@ class Session:
             rank, store=dist.PrefixStore(f"run{self._runs}", rank["store"])),
             **kw)
 
+    def _pipe_trainer(self, run, opt, tracer, metrics):
+        """The 1F1B trainer for ``spec.pipe`` stages over ``spec.dp`` (or
+        ``pipe``) entries, stage-major (``distributed.pipeline.
+        pipeline_devices``), every stage driven by this process; the
+        schedule owns the microbatches, so ``run.microbatch`` is 0, and
+        ``sync="auto"`` takes the plan's strategy."""
+        from repro_torch.distributed.pipeline import (PipelineTrainer,
+                                                      pipeline_devices)
+
+        spec = self.spec
+        world = spec.dp or spec.pipe
+        strategy = (self.resolved_plan.resolve_sync() if spec.sync == "auto"
+                    else spec.sync)
+        return PipelineTrainer(
+            self.cfg, dataclasses.replace(run, microbatch=0), opt,
+            pipe=spec.pipe, n_microbatch=spec.n_microbatch,
+            strategy=strategy, compression=spec.compress,
+            devices=pipeline_devices(self.device, world), tracer=tracer,
+            metrics=metrics)
+
     def _run_train(self, kind: str) -> Report:
         from repro_torch.train.loop import train as train_loop
 
@@ -378,8 +416,16 @@ class Session:
                        seed=spec.seed, log_every=spec.log_every,
                        ckpt_dir=spec.ckpt_dir or None,
                        ckpt_every=spec.ckpt_every)
-        sync_rep, async_rep, rank = None, None, None
-        if spec.dp:
+        sync_rep, async_rep, pipe_rep, rank = None, None, None, None
+        if spec.pipe > 1:
+            trainer = self._pipe_trainer(run, opt, tracer, metrics)
+            try:
+                res = trainer.train(**loop_kw)
+                sync_rep = trainer.report()
+                pipe_rep = trainer.pipeline_report()
+            finally:
+                trainer.close()
+        elif spec.dp:
             trainer = self._trainer(run, opt, tracer, metrics)
             rank = trainer.rank
             try:
@@ -406,6 +452,8 @@ class Session:
         metrics.set_gauge("train/r_o", measured["r_o"])
         if sync_rep is not None:
             measured["sync"] = sync_rep.as_dict()
+        if pipe_rep is not None:
+            measured["pipeline"] = pipe_rep.as_dict()
         if async_rep is not None:
             measured["async_ps"] = async_rep.as_dict()
         if spec.tune:  # the run adopted tuned knobs: record what they were

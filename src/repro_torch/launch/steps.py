@@ -87,10 +87,12 @@ def build_grad_fn(cfg: ModelConfig, run: RunConfig):
     return grads_of
 
 
-def torch_grad(loss, leaves):
-    """d loss / d leaves; a leaf the loss does not reach gets zeros, as
-    ``jax.grad`` gives."""
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+def torch_grad(loss, leaves, cotangent=None):
+    """d loss / d leaves (the vector-Jacobian product with ``cotangent``
+    when ``loss`` is not a scalar); a leaf the loss does not reach gets
+    zeros, as ``jax.grad`` gives."""
+    grads = torch.autograd.grad(loss, leaves, grad_outputs=cotangent,
+                                allow_unused=True)
     return [torch.zeros_like(p) if g is None else g
             for p, g in zip(leaves, grads)]
 

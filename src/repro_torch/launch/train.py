@@ -6,6 +6,7 @@
                [--compress none|bf16|int8|topk] [--topology 2x4]
                [--overlap --bucket-mb 4]
                [--staleness 2 --backup-workers 1 [--sync auto]]] \\
+        [--pipe 2 [--microbatch 4] [--dp 4]] \\
         [--autotune [--tune-cache results/calibration_cache.json]] \\
         [--ckpt-dir DIR [--ckpt-every 50]] [--report-out PATH] [--device cuda]
 
@@ -31,8 +32,11 @@ short training steps measured, the hardware constants calibrated), prints
 its choices and adopts its attention and microbatch; the calibration
 persists in ``--tune-cache`` ('' disables it).  ``--ckpt-dir``
 checkpoints every ``--ckpt-every`` steps (0: 50) and resumes from the
-newest complete step there.  ``--pipe`` > 1, whose module is not ported,
-raises ``NotImplementedError``.  It prints the JAX launcher's summary
+newest complete step there.  ``--pipe P`` (> 1) runs the 1F1B pipeline
+trainer over P stages and ``--microbatch`` microbatches (0: P), with
+``--dp`` (default P) entries in all, stage-major, driven by this one
+process (on one card every stage shares it; under ``torchrun`` it
+raises ``NotImplementedError``).  It prints the JAX launcher's summary
 lines and its JSON last line.
 """
 from __future__ import annotations
@@ -94,7 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run the data-parallel trainer on this many ranks "
                          "(0 = the single-device loop)")
     ap.add_argument("--pipe", type=int, default=0,
-                    help="1F1B pipeline stages (not ported: > 1 raises)")
+                    help="1F1B pipeline stages (> 1: the pipeline "
+                         "trainer; --dp then counts every stage's shards)")
     ap.add_argument("--microbatch", type=int, default=0,
                     help="1F1B microbatches per step")
     ap.add_argument("--sync", default="auto",
@@ -180,6 +185,12 @@ def main(argv=None):
               f"{a['t_step_model']['wall_step']*1e3:.3g}ms at "
               f"{a['t_step_model']['efficiency']:.0%} statistical "
               f"efficiency")
+    if "pipeline" in m:
+        pr = m["pipeline"]
+        print(f"pipeline: {pr['pipe']} stages x {pr['n_microbatch']} "
+              f"microbatches, bubble measured {pr['bubble_measured']:.3f} "
+              f"vs model {pr['bubble_model']:.3f} "
+              f"(serial {pr['bubble_serial']:.3f})")
     losses = m["losses"]
     print(f"loss {np.mean(losses[:5]):.4f} -> {np.mean(losses[-5:]):.4f}; "
           f"{m['tokens_per_s']:,.0f} tok/s; R_O={m['r_o']:.4f}")

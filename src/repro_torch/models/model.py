@@ -156,16 +156,17 @@ def _layers(tree, n: int):
 # ---------------------------------------------------------------------------
 
 
-def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            run: RunConfig, with_cache: bool = False):
-    """Full-sequence forward over ``batch["tokens"]`` (B,S).  Returns
-    (logits, caches, aux_loss); caches are stacked (cycles, B, S, KV, hd)
-    per slot."""
-    check_ported(cfg)
-    params = cast_params(params, cfg)
-    h = embed_tokens(params, batch, cfg)
+def positions_of(h: torch.Tensor) -> torch.Tensor:
+    """Positions 0..S-1 of every row of ``h`` (B,S,...)."""
     B, S = h.shape[:2]
-    positions = torch.arange(S, device=h.device)[None].expand(B, S)
+    return torch.arange(S, device=h.device)[None].expand(B, S)
+
+
+def run_cycles(slots, h, positions, cfg: ModelConfig, run: RunConfig,
+               n_cycles: int, with_cache: bool = False):
+    """The block stack over ``n_cycles`` stacked cycles of ``slots`` (the
+    whole model's, or a pipeline stage's slice of it).  Returns (h, the
+    per-cycle caches when ``with_cache``, else [])."""
     slot_names = [f"slot{i}" for i in range(len(cfg.pattern))]
 
     def cycle(h, layer):
@@ -178,7 +179,7 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     # remat only where there is a backward to recompute for (training)
     remat = run.remat == "block" and h.requires_grad and not with_cache
     per_cycle = []
-    for layer in _layers(params["slots"], main_cycles(cfg)):
+    for layer in _layers(slots, n_cycles):
         if remat:
             h = checkpoint(lambda x, lp=layer: cycle(x, lp)[0], h,
                            use_reentrant=False, preserve_rng_state=False)
@@ -186,12 +187,38 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         h, caches = cycle(h, layer)
         if with_cache:
             per_cycle.append(caches)
+    return h, per_cycle
+
+
+def head_logits(params, h, cfg: ModelConfig):
+    """Final norm and LM head: ``params`` holds ``final_norm`` and the head
+    (``embed`` when tied, else ``lm_head``)."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = lm_logits(params, h, cfg)
+    return lm_logits(params, h, cfg)
+
+
+def masked_loss(logits, labels, aux, aux_weight: float = 0.01):
+    """(ce + aux_weight * aux, ce): the CE over ``labels`` >= 0."""
+    mask = (labels >= 0).float()
+    ce = cross_entropy(logits, torch.clamp(labels, min=0), mask)
+    return ce + aux_weight * aux, ce
+
+
+def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            run: RunConfig, with_cache: bool = False):
+    """Full-sequence forward over ``batch["tokens"]`` (B,S).  Returns
+    (logits, caches, aux_loss); caches are stacked (cycles, B, S, KV, hd)
+    per slot."""
+    check_ported(cfg)
+    params = cast_params(params, cfg)
+    h = embed_tokens(params, batch, cfg)
+    h, per_cycle = run_cycles(params["slots"], h, positions_of(h), cfg, run,
+                              main_cycles(cfg), with_cache)
+    logits = head_logits(params, h, cfg)
     if not with_cache:
         return logits, None, 0.0
     stacked = {n: {k: torch.stack([c[n][k] for c in per_cycle])
-                   for k in per_cycle[0][n]} for n in slot_names}
+                   for k in per_cycle[0][n]} for n in per_cycle[0]}
     return logits, {"slots": stacked}, 0.0
 
 
@@ -207,9 +234,8 @@ def loss_fn(params, batch, cfg: ModelConfig, run: RunConfig,
         pad = labels.new_full(labels.shape[:1] + (n_img,) + labels.shape[2:],
                               -1)
         labels = torch.cat([pad, labels], dim=1)
-    mask = (labels >= 0).float()
-    ce = cross_entropy(logits, torch.clamp(labels, min=0), mask)
-    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+    loss, ce = masked_loss(logits, labels, aux, aux_weight)
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

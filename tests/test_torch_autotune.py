@@ -122,6 +122,59 @@ def test_bench_kernels_lets_faults_propagate(monkeypatch):
         ttune.bench_kernels(device="cpu", seq=32, repeats=1)
 
 
+def _spy_timeit(monkeypatch):
+    """Record every (fn, args, seconds) host_microbench times."""
+    calls = []
+    real = ttune._timeit
+
+    def spy(fn, *args, **kw):
+        t = real(fn, *args, **kw)
+        calls.append((fn, args, t))
+        return t
+
+    monkeypatch.setattr(ttune, "_timeit", spy)
+    return calls
+
+
+def test_timed_triad_is_one_aten_op(monkeypatch):
+    """Each pass of the triad host_microbench times is one fused pass (two
+    reads, one write), as JAX's jitted ``u + 2.0 * v``: one aten op, not
+    the two (mul, then add) that eager ``u + 2.0 * v`` dispatches; the
+    timed call runs ``passes`` of them and nothing else."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    calls = _spy_timeit(monkeypatch)
+    ttune.host_microbench(n=16, copy_mb=1, repeats=1, passes=3,
+                          device="cpu")
+    assert len(calls) == 2  # the matmul, then the triad
+    fn, (u, v, w, passes), _ = calls[1]
+    assert passes == 3
+    with Count() as count:
+        out = fn(u, v, w, passes)
+    assert count.ops == ["aten.add.out"] * 3
+    assert out is w and torch.equal(out, u + 2.0 * v)
+
+
+def test_triad_counts_twelve_bytes_an_element(monkeypatch):
+    """JAX's byte count: 3 x 4 bytes an element a pass, times the passes,
+    over the time _timeit reports (and 2 n^3 FLOPs over the matmul's)."""
+    calls = _spy_timeit(monkeypatch)
+    got = ttune.host_microbench(n=16, copy_mb=1, repeats=1, device="cpu")
+    m, passes = 2 ** 20 // 4, calls[1][1][3]
+    assert calls[1][1][0].numel() == m and passes == 16
+    assert got["triad_bw"] == 12.0 * m * passes / calls[1][2]
+    assert got["matmul_flops"] == 2.0 * 16 ** 3 / calls[0][2]
+
+
 def test_host_microbench_and_cuda_default():
     got = ttune.host_microbench(n=64, copy_mb=1, repeats=1, device="cpu")
     assert got["matmul_flops"] > 0 and got["triad_bw"] > 0

@@ -411,3 +411,69 @@ def test_session_tune_on_card(cuda, tmp_path):
         w.launches = 0
     assert "tuning" in sess.train().measured
     assert not any(w.launches for w in wrappers.values())
+
+
+@pytest.mark.gpu
+def test_triad_reads_the_card_bandwidth(cuda):
+    """host_microbench's triad is fused passes (two reads, one write an
+    element), several to a timed call, so on an H100 (3.35 TB/s on the
+    data sheet) it reads above 2e12 B/s both at the calibration's 32 MiB
+    an array and at 256 MiB: the eager two-kernel form (five array passes
+    counted as three) read 1.30-1.40e12, and one fused pass a call
+    1.70-2.16e12 at 32 MiB, where the fixed cost of a call (launch and
+    synchronize) is about one pass's time."""
+    from repro_torch.core.autotune import host_microbench
+
+    for mb in (32, 256):
+        got = host_microbench(copy_mb=mb)
+        assert got["triad_bw"] > 2e12, (mb, got)
+
+
+@pytest.mark.gpu
+def test_pipeline_trainer_on_one_card(cuda):
+    """pipe 2 with both stages on cuda:0 against the single-stage trainer
+    (dp 1, run.microbatch = rows a microbatch), 2 steps at fp32 from the
+    same params and tokens: every leaf within 2e-4 + 2e-4 * max |want|,
+    or 2 * lr + 2e-4 where AdamW's normalized step turns on rounding
+    (sqrt of the second moment below 100 * eps; C5's bound)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.pipeline import PipelineTrainer
+    from repro_torch.distributed.trainer import DataParallelTrainer
+    from repro_torch.models import model as M
+    from repro_torch.models.blocks import RunConfig
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.optim.adamw import OptConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("granite-3-2b").reduced().replace(num_layers=4,
+                                                       dtype="float32")
+    opt = OptConfig(lr=1e-3, warmup_steps=0)
+    run = RunConfig(attn_impl="auto", remat="block")
+    p0 = M.init_params(cfg, 0, cuda)
+    pt = PipelineTrainer(cfg, run, opt, pipe=2, n_microbatch=4,
+                         devices=["cuda:0", "cuda:0"])
+    try:
+        pt.train(batch=8, seq=64, steps=2, log_every=0,
+                 params=tree_map(torch.clone, p0))
+        rep = pt.pipeline_report()
+    finally:
+        pt.close()
+    dp = DataParallelTrainer(cfg, RunConfig(attn_impl="auto", remat="block",
+                                            microbatch=2), opt,
+                             devices=["cuda:0"])
+    try:
+        dp.train(batch=8, seq=64, steps=2, log_every=0,
+                 params=tree_map(torch.clone, p0))
+    finally:
+        dp.close()
+    assert rep.bubble_model == 0.2
+    v = dict(tree_items(dp.opt_states[0]["v"]))
+    bc2 = 1 - opt.b2 ** 2
+    for path, want in tree_items(dp.params[0]):
+        got = dict(tree_items(pt.params))[path]
+        d = (got - want).abs()
+        tiny = (v[path] / bc2).sqrt() < 100 * opt.eps
+        lim = 2e-4 + 2e-4 * want.abs().max().item()
+        assert d[~tiny].max().item() <= lim, path
+        if bool(tiny.any()):
+            assert d[tiny].max().item() <= 2 * opt.lr + 2e-4, path

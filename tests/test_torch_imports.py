@@ -43,6 +43,10 @@ def test_no_jax_or_repro_imports(path):
 def test_scan_sees_every_module():
     assert len(FILES) > 20 and (REPO / "chip_smoke.py").exists()
     assert len(BENCHMARKS) >= 10 and all(p in FILES for p in BENCHMARKS)
+    for new in ("src/repro_torch/distributed/pipeline.py",
+                "src/repro_torch/core/pipeline.py",
+                "benchmarks/torch_pipeline.py"):
+        assert REPO / new in FILES, new
     assert _forbidden("repro.models") and _forbidden("jax.numpy")
     assert _forbidden("ml_dtypes")
     assert not _forbidden("repro_torch.models")

@@ -40,6 +40,7 @@ from repro_torch.core import amdahl as tamdahl
 from repro_torch.core import hardware as thw
 from repro_torch.core import ps as tps
 from repro_torch.distributed import overlap as tov
+from repro_torch.distributed import trainer as ttrainer
 from repro_torch.distributed.trainer import (DEFAULT_LINK_BW,
                                              DataParallelTrainer,
                                              default_link_bw)
@@ -381,12 +382,18 @@ def test_trainer_prices_cards_on_nvlink():
     (dict(pipe=2), "Next 3"),
     (dict(tune=True), "Next 6"),
 ])
-def test_unported_options_name_their_roadmap_item(kw, item):
-    """pipe > 1 (Next 3) raises naming its ROADMAP item.  Next 6 (tune) is
-    ported: its spec now trains on the tuned knobs and reports them."""
+def test_unported_options_name_their_roadmap_item(kw, item, monkeypatch):
+    """Next 6 (tune) and Next 3 (pipe > 1) are ported: a tuned spec trains
+    on the tuned knobs and reports them, a pipelined one runs the 1F1B
+    trainer and reports its pipeline section.  pipe > 1 under torchrun
+    (one process a stage, Next 19) raises naming its ROADMAP item."""
     spec = JobSpec(arch="granite-3-2b", steps=2, batch=4, seq=8, **kw)
     if item == "Next 6":
         assert "tuning" in Session(spec, device="cpu").train().measured
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    assert Session(spec, device="cpu").train().measured["pipeline"][
+        "pipe"] == 2
+    monkeypatch.setattr(ttrainer, "torchrun_env", lambda: ttrainer.TorchrunEnv(
+        0, 2, 0, "localhost", 29500))
+    with pytest.raises(NotImplementedError, match="ROADMAP Next 19"):
         Session(spec, device="cpu").train()

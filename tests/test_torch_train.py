@@ -567,9 +567,10 @@ def test_session_train_single_device_returns_jax_keys():
 
 
 @pytest.mark.parametrize("kw", [dict(tune=True), dict(pipe=2)])
-def test_options_not_ported_raise(kw):
-    """pipe > 1 raises naming its ROADMAP item; tune is ported now, and a
-    tuned spec trains with the tuned attention and microbatch."""
+def test_options_not_ported_raise(kw, monkeypatch):
+    """pipe > 1 under torchrun (one process a stage) raises naming its
+    ROADMAP item; tune is ported now, and a tuned spec trains with the
+    tuned attention and microbatch."""
     spec = JobSpec(arch="granite-3-2b", steps=2, batch=4, seq=8, **kw)
     if kw.get("tune"):
         sess = Session(spec, device="cpu")
@@ -579,6 +580,10 @@ def test_options_not_ported_raise(kw):
             == 7
         assert run.microbatch == 4 and run.attn_impl in ("auto", "dense")
         return
+    from repro_torch.distributed import trainer as ttrainer
+
+    monkeypatch.setattr(ttrainer, "torchrun_env", lambda: ttrainer.TorchrunEnv(
+        0, 2, 0, "localhost", 29500))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Session(spec, device="cpu").train()
 

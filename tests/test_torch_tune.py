@@ -496,10 +496,18 @@ def test_calibrated_session_prices_the_h100_on_measured_constants():
     assert cal["meta"]["calibration"]["key"] == tcal.key
 
 
-def test_unported_pipe_still_raises_with_tune(tmp_path):
-    spec = _spec(tmp_path, pipe=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Next 3"):
-        Session(spec, device="cpu").train()
+def test_unported_pipe_still_raises_with_tune(tmp_path, monkeypatch):
+    """pipe > 1 under torchrun (one process a stage) raises naming its
+    ROADMAP item before the tuner measures anything."""
+    from repro_torch.distributed import trainer as ttrainer
+
+    monkeypatch.setattr(ttrainer, "torchrun_env", lambda: ttrainer.TorchrunEnv(
+        0, 2, 0, "localhost", 29500))
+    spec = _spec(tmp_path, pipe=2, dp=2)
+    sess = Session(spec, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Next 19"):
+        sess.train()
+    assert sess._tuned is None
 
 
 def test_launcher_autotune_in_process(capsys, tmp_path):
