@@ -168,6 +168,31 @@ Phases, each fatal on failure (exit code != 0, no result line):
    host_microbench()'s triad (16 fused passes a timed call) at 32 and
    256 MiB an array, and one pass a call at 32 MiB, beside phase 12's
    calibrated hbm_bw.
+14. MLA, MoE and the dense prelude — (1) Session.serve() (continuous, 4
+   requests, n_new up to 16, s_max 512) of deepseek-v2-236b at full width
+   with 2 layers (the dense prelude layer and one MLA + MoE cycle: 160
+   experts, top-6, 2 shared; ~5.4e9 params), no kernel launched (MLA
+   serves on "dense"): tokens/s, TTFT (the scheduler's first_token_s);
+   then at fp32 on the same weights the engine's prefill logits against
+   M.forward and one absorbed-latent decode step against the forward at
+   that position, at 2e-4; (2) moe_mlp at deepseek-v2's widths, T = 4 x
+   512, fp32: at capacity factor 8 (no drop) against moe_mlp_ref at 2e-4,
+   at 1.25 the card's top-k indices and keep mask equal to the CPU's
+   (router inputs on a grid where every sum is exact), output, aux and
+   the gradients of x and the router bitwise equal across two runs; its
+   bf16 time beside its bound; (3) Session.train() of minicpm3-4b at full
+   width, 8 layers, 4 steps (losses, step time, max_memory_allocated),
+   and one full-width layer's fp32 loss and gradients on the card against
+   the CPU; (4) the same for an MoE step at deepseek-v2's widths with 16
+   experts (the trainer keeps whole fp32 masters, gradients and AdamW
+   state on one card; at 160 experts two layers need ~86 GB), the aux
+   non-zero in the loss; (5) PipelineTrainer, pipe 2 on this card, on
+   deepseek-v2's reduced config with 4 MLA/MoE cycles: params bitwise the
+   single-stage trainer's; (6) Session.serve() of arctic-480b, one layer
+   at full width with 16 experts: B1 launches once a prefill and B2 once
+   an engine step, and both hold to their plain versions at arctic's
+   shapes (H 56, KV 8, D 128), listed in the kernels line with those
+   launches.  Every number carries the card's name and power limit.
 
 Then it prints the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line, and, last, the
@@ -1628,6 +1653,468 @@ def pipeline_phase(torch, wrappers, triad_12: float) -> None:
           f"phase 12's calibrated hbm_bw {triad_12:.4e} B/s", flush=True)
 
 
+def card_label() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def smooth_mixers(params):
+    """smooth_attention for every slot and the prelude, GQA or MLA: each
+    (L, in, heads, out) attention projection scaled by sqrt(heads / in),
+    ``wo`` (L, H, hd, D) by H^-1/2 (tests/test_torch_archs.py::_smooth);
+    in place, returns ``params``."""
+    for k, v in params.items():
+        if k == "mixer":
+            for n, a in v.items():
+                if n == "wo":
+                    a.mul_(a.shape[1] ** -0.5)
+                elif a.ndim == 4:
+                    a.mul_((a.shape[2] / a.shape[1]) ** 0.5)
+        elif isinstance(v, dict):
+            smooth_mixers(v)
+    return params
+
+
+class first_tokens:
+    """Collect every ContinuousScheduler's per-request time to first token
+    (its own ``first_token_s``) while the block runs."""
+
+    def __enter__(self):
+        from repro_torch.serve import continuous
+
+        self.cls, self.orig = continuous.ContinuousScheduler, \
+            continuous.ContinuousScheduler.run
+        self.ttft = []
+        orig, ttft = self.orig, self.ttft
+
+        def run(sched):
+            out = orig(sched)
+            ttft.extend(sched.first_token_s.values())
+            return out
+
+        self.cls.run = run
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run = self.orig
+
+
+def serve_full_width(torch, wrappers, arch, cfg, label, card):
+    """Session.serve() (continuous) of ``cfg`` at full width, twice on one
+    session (cold: the first use of every kernel in the process; then
+    warm), each with the kernels' counters zeroed just before and read
+    just after; fails on a missing token, a non-finite logits row or an
+    invalid report.  Returns each run's (launches, prefills, engine
+    steps), cold first."""
+    from repro_torch.api import JobSpec, Session, validate_report
+
+    spec = JobSpec(arch=arch, reduced=False, requests=4, n_new=16, s_max=512,
+                   max_batch=4, serve_mode="continuous")
+    session = Session(spec, config=cfg, device="cuda")
+    want = [n_new for _, _, n_new in session._serve_workload()]
+    runs = []
+    for run in ("cold", "warm"):
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with first_tokens() as ft:
+            rep = session.serve()
+        launches = {n: fn.launches for n, fn in wrappers.items()}
+        validate_report(rep.to_dict())
+        m = rep.measured
+        hists, counters = m["metrics"]["histograms"], m["metrics"]["counters"]
+        got = [r["tokens"] for r in m["per_request"]]
+        if got != want:
+            fail(f"{label}: tokens per request {got} != n_new {want}")
+        if counters["serve/nonfinite_logit_rows"]:
+            fail(f"{label}: {counters['serve/nonfinite_logit_rows']} logits "
+                 "rows hold NaN or inf")
+        ttft = sorted(ft.ttft)
+        prefills = hists["serve/prefill_s"]["count"]
+        steps = m["serving"]["throughput"]["engine_steps"]
+        print(f"[moe] {label} ({rep.meta['executed_config']['n_params']:,} "
+              f"params), Session.serve() continuous, {run}: 4 requests "
+              f"(prompts {m['prompt_lengths']}), n_new up to 16: "
+              f"{m['n_tokens']} tokens in {m['wall_s']:.3f} s = "
+              f"{m['tokens_per_s']:.1f} tok/s; TTFT p50 "
+              f"{ttft[len(ttft) // 2] * 1e3:.1f} ms, max "
+              f"{ttft[-1] * 1e3:.1f} ms; prefill p50 "
+              f"{hists['serve/prefill_s']['p50'] * 1e3:.2f} ms over "
+              f"{prefills}; decode step p50 "
+              f"{hists['serve/decode_s']['p50'] * 1e3:.2f} ms over {steps} "
+              f"steps; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+              f"(max_memory_allocated); launches "
+              f"{ {n: c for n, c in launches.items() if c} } ({card})",
+              flush=True)
+        runs.append((launches, prefills, steps))
+        del rep
+    del session
+    torch.cuda.empty_cache()
+    return runs
+
+
+def moe_mla_phase(torch, mods, wrappers) -> list:
+    """Phase 14: MLA, the MoE MLP and the dense prelude (see the module
+    docstring).  Returns arctic's kernel cases, each with the launches of
+    arctic's serve run."""
+    from repro_torch.api import JobSpec, Session, validate_report
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.pipeline import PipelineTrainer
+    from repro_torch.distributed.trainer import DataParallelTrainer
+    from repro_torch.launch.steps import build_grad_fn
+    from repro_torch.models import attention as attn
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.models.blocks import RunConfig
+    from repro_torch.models.common import materialize, tree_items, tree_map
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.serve import continuous
+    from repro_torch.serve.continuous import ContinuousEngine, ServeRequest
+    from repro_torch.serve.engine import place_prefill_cache
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    ds = get_config("deepseek-v2-236b")
+
+    # 14.1: deepseek-v2 full width, the prelude and one MLA + MoE cycle,
+    # served through the entry point a user calls (MLA runs on "dense":
+    # no kernel may launch)
+    cfg = ds.replace(num_layers=2)
+    runs = serve_full_width(
+        torch, wrappers, "deepseek-v2-236b", cfg,
+        "deepseek-v2-236b full width, 2 layers (dense prelude + MLA/MoE: "
+        "160 experts, top-6, 2 shared)", card)
+    if any(any(launches.values()) for launches, _, _ in runs):
+        fail(f"deepseek-v2 serving launched kernels: {runs}")
+
+    # the engine's prefill logits and one absorbed-latent decode step, at
+    # fp32 on the same weights (init seed 0, the session's): fp32 keeps
+    # the router's top-k off the bf16 rounding of two different paths
+    cfg32 = cfg.replace(dtype="float32")
+    params = M.init_params(cfg32, 0, "cuda")
+    L = 256  # a prefill bucket: the engine's forward sees the prompt alone
+    g = torch.Generator(device="cuda").manual_seed(14)
+    prompts = torch.randint(0, cfg.vocab_size, (2, L + 1), generator=g,
+                            device="cuda", dtype=torch.int32)
+    eng = ContinuousEngine(cfg32, RunConfig(attn_impl="dense"), params,
+                           s_max=512, max_batch=2, device="cuda")
+    seen = []
+    greedy = continuous.greedy
+    continuous.greedy = lambda logits, metrics: (seen.append(logits),
+                                                 greedy(logits, metrics))[1]
+    try:
+        eng.prefill_whole(ServeRequest(0, prompts[0, :L].cpu().numpy(), 1))
+    finally:
+        continuous.greedy = greedy
+    with torch.no_grad():
+        ref, _, _ = M.forward(params, {"tokens": prompts[:1, :L]}, cfg32,
+                              RunConfig(attn_impl="dense"))
+        err_p = (seen[0][0].float() - ref[0, L - 1]).abs().max().item()
+        lim_p = FP32_TOL + FP32_TOL * ref[0, L - 1].abs().max().item()
+        # decode at position L over the prompts' fp32 caches, against the
+        # forward over L + 1 tokens at L with room for every assignment
+        # (decode's 2 rows never drop: C >= 4)
+        _, caches, _ = M.forward(params, {"tokens": prompts[:, :L]}, cfg32,
+                                 RunConfig(attn_impl="dense"),
+                                 with_cache=True)
+        caches = tree_map(lambda c: torch.nn.functional.pad(
+            c, (0, 0) * (c.ndim - 3) + (0, 1)), caches)
+        pos = torch.full((2,), L, dtype=torch.int32, device="cuda")
+        step, _ = M.decode_step(params, prompts[:, L:], pos, caches, cfg32,
+                                RunConfig(attn_impl="dense"))
+        full, _, _ = M.forward(
+            params, {"tokens": prompts}, cfg32,
+            RunConfig(attn_impl="dense",
+                      capacity_factor=cfg.num_experts / cfg.top_k))
+        err_d = (step[:, 0] - full[:, L]).abs().max().item()
+        lim_d = FP32_TOL + FP32_TOL * full[:, L].abs().max().item()
+    print(f"[moe] deepseek-v2 2 layers at fp32 on the card: the engine's "
+          f"prefill logits (prompt {L}) vs M.forward max |diff| "
+          f"{err_p:.3e} (limit {lim_p:.3e}); the absorbed-latent decode "
+          f"step at position {L} (2 rows) vs the forward over {L + 1} "
+          f"tokens max |diff| {err_d:.3e} (limit {lim_d:.3e}); argmax "
+          f"{step[:, 0].argmax(-1).tolist()} vs "
+          f"{full[:, L].argmax(-1).tolist()}", flush=True)
+    if not err_p <= lim_p:
+        fail(f"the engine's prefill logits differ from M.forward by {err_p}")
+    if not err_d <= lim_d:
+        fail(f"the MLA decode step differs from the forward by {err_d}")
+    del eng, caches, seen, ref, full, step
+
+    # what sets a served decode step's pace (bf16, 4 rows at position
+    # 64): the whole step, and its cycle's MoE MLP and absorbed-latent
+    # MLA alone
+    pb = M.cast_params(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    run = RunConfig(attn_impl="dense")
+    toks = prompts[:, :64].repeat(2, 1)
+    with torch.no_grad():
+        _, caches, _ = M.forward(pb, {"tokens": toks}, cfg, run,
+                                 with_cache=True)
+        caches = place_prefill_cache(cfg, caches, 128, 64, ring=False)
+        pos = torch.full((4,), 64, dtype=torch.int32, device="cuda")
+        last = toks[:, -1:]
+
+        def step():
+            return M.decode_step(pb, last, pos, caches, cfg, run)
+
+        ms_step = time_ms(torch, step, iters=10)
+        n_kernels = sum(c for c, _ in profile_kernels(torch, step, 1).values())
+        layer = tree_map(lambda a: a[0], pb["slots"]["slot0"])
+        lcache = tree_map(lambda a: a[0], caches["slots"]["slot0"])
+        u = torch.randn(4, 1, cfg.d_model, generator=g, device="cuda").to(
+            torch.bfloat16)
+        ms_moe = time_ms(torch, lambda: moe.moe_mlp(layer["mlp"], u, cfg),
+                         iters=10)
+        ms_mla = time_ms(torch, lambda: attn.mla_decode(
+            layer["mixer"], u, pos, lcache, cfg, "mla"), iters=10)
+    print(f"[moe] deepseek-v2 2 layers, one bf16 decode step of 4 rows at "
+          f"position 64: {ms_step:.3f} ms (CUDA events, 10 steps), "
+          f"{n_kernels or 'not measured'} kernels a step (torch.profiler); "
+          f"its MoE MLP alone {ms_moe:.3f} ms, its absorbed-latent MLA "
+          f"alone {ms_mla:.3f} ms ({card})", flush=True)
+    del pb, caches, layer, lcache
+    torch.cuda.empty_cache()
+
+    # 14.2: moe_mlp at deepseek-v2's widths, T = 4 x 512 tokens.  The
+    # router's inputs are multiples of 1/2 and 2^-10 (exact fp32 sums on
+    # any device in any order), so the card's logits are the CPU's bit for
+    # bit, ties included
+    E, K = ds.num_experts, ds.top_k
+    p = tree_map(lambda a: a[0], materialize(moe.moe_specs(ds, 1), 0, "cuda"))
+    gq = torch.Generator(device="cuda").manual_seed(15)
+    p["router"] = torch.randint(-8, 9, p["router"].shape, generator=gq,
+                                device="cuda").float() * 2.0 ** -10
+    x = torch.randint(-2, 3, (4, 512, ds.d_model), generator=gq,
+                      device="cuda").float() / 2
+    T = x.shape[0] * x.shape[1]
+    with torch.no_grad():
+        big = 8.0  # C = 615: room for every assignment (64 would need ~70 GB)
+        r_big = moe.route(p, x.reshape(T, -1), ds, big)
+        got, _ = moe.moe_mlp(p, x, ds, capacity_factor=big)
+        want = moe.moe_mlp_ref(p, x, ds)
+        err = (got - want).abs().max().item()
+        lim = FP32_TOL + FP32_TOL * want.abs().max().item()
+        load = torch.bincount(r_big["idx"].reshape(-1), minlength=E)
+        del want
+        r_card = moe.route(p, x.reshape(T, -1), ds, 1.25)
+        r_cpu = moe.route({"router": p["router"].cpu()}, x.reshape(T, -1).cpu(),
+                          ds, 1.25)
+        same_idx = torch.equal(r_card["idx"].cpu(), r_cpu["idx"])
+        keep_card = torch.zeros(T * K, dtype=torch.bool)
+        keep_card[r_card["order"].cpu()] = r_card["keep"].cpu()
+        keep_cpu = torch.zeros(T * K, dtype=torch.bool)
+        keep_cpu[r_cpu["order"]] = r_cpu["keep"]
+        same_keep = torch.equal(keep_card, keep_cpu)
+    runs = []
+    for _ in range(2):
+        xr = x.clone().requires_grad_()
+        router = p["router"].clone().requires_grad_()
+        out, aux = moe.moe_mlp({**p, "router": router}, xr, ds)
+        (out.square().mean() + aux).backward()
+        runs.append((out.detach(), aux.detach(), xr.grad, router.grad))
+        del out, aux, xr, router
+    same_runs = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"[moe] moe_mlp at deepseek-v2 widths (D 5120, 160 experts, top-6, "
+          f"2 shared, T {T}), fp32: at capacity factor {big} (C "
+          f"{r_big['C']}, largest expert load {int(load.max())}: no drop "
+          f"{bool(r_big['keep'].all())}) vs moe_mlp_ref max |diff| "
+          f"{err:.3e} (limit {lim:.3e}); at 1.25 (C {r_card['C']}, "
+          f"{int((~r_card['keep']).sum())} of {T * K} assignments dropped) "
+          f"the card's top-k indices equal the CPU's: {same_idx}, keep mask "
+          f"equal: {same_keep}; output, aux and the gradients of x and the "
+          f"router bitwise equal across two runs: {same_runs}", flush=True)
+    if not bool(r_big["keep"].all()) or not err <= lim:
+        fail(f"moe_mlp differs from moe_mlp_ref by {err} (drops "
+             f"{int((~r_big['keep']).sum())})")
+    if not (same_idx and same_keep):
+        fail("moe_mlp's routing on the card differs from the CPU's")
+    if not same_runs:
+        fail("moe_mlp is not deterministic on the card")
+    del runs
+    pb = tree_map(lambda a: a.to(torch.bfloat16), p)
+    del p
+    torch.cuda.empty_cache()
+    xb = torch.randn(4, 512, ds.d_model, generator=gq, device="cuda").to(
+        torch.bfloat16)
+    with torch.no_grad():
+        ms = time_ms(torch, lambda: moe.moe_mlp(pb, xb, ds), iters=10)
+        dms = device_ms(torch, lambda: moe.moe_mlp(pb, xb, ds), iters=10)
+        r = moe.route(pb, xb.reshape(T, -1), ds, 1.25)
+    active = int(r["keep"].sum())
+    F_ = ds.moe_d_ff
+    flops = 2 * 3 * ds.d_model * F_ * (active + T * ds.num_shared_experts)
+    nbytes = 2 * (3 * ds.d_model * F_ * (E + ds.num_shared_experts)
+                  + ds.d_model * E + 2 * T * ds.d_model)
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"[moe] moe_mlp forward at deepseek-v2 widths, bf16, capacity "
+          f"1.25, T {T}: {ms:.3f} ms a call (CUDA events, 10 calls; device "
+          f"time {dev_ms(dms)} ms, every kernel of a call summed); bound "
+          f"{b_ms:.3f} ms ({b_by}: every expert's weights read once, "
+          f"{active} kept assignments; {card})", flush=True)
+    del pb, xb, r
+    torch.cuda.empty_cache()
+
+    # 14.3: minicpm3-4b at full width, 8 layers, through Session.train()
+    mc = get_config("minicpm3-4b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    session = Session(JobSpec(arch="minicpm3-4b", reduced=False, steps=4,
+                              batch=4, seq=512, log_every=0),
+                      config=mc.replace(num_layers=8), device="cuda")
+    rep = session.train()
+    validate_report(rep.to_dict())
+    m = rep.measured
+    hist = m["metrics"]["histograms"]["train/step_s"]
+    print(f"[moe] minicpm3-4b full width, 8 layers "
+          f"({rep.meta['executed_config']['n_params']:,} params), "
+          f"Session.train() batch 4 x seq 512, 4 steps, auto attention + "
+          f"block remat: losses {[round(v, 4) for v in m['losses']]}; step "
+          f"wall p50 {hist['p50'] * 1e3:.1f} ms (min {hist['min'] * 1e3:.1f}"
+          f"); tokens/s {m['tokens_per_s']:.1f} over the run; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(max_memory_allocated); wall {time.perf_counter() - t0:.1f} s "
+          f"({card})", flush=True)
+    if not all(map(math.isfinite, m["losses"])):
+        fail(f"minicpm3-4b losses {m['losses']}: not finite")
+    run, _ = session.build_run_opt()
+    del rep, session
+    torch.cuda.empty_cache()
+
+    def card_vs_cpu(label, cfg1, seed):
+        """One fp32 loss-and-gradient evaluation of ``cfg1`` on the card
+        and on the CPU from the same smoothed weights and tokens."""
+        p_cpu = smooth_mixers(materialize(M.model_specs(cfg1), seed, "cpu"))
+        p_gpu = tree_map(lambda a: a.to("cuda"), p_cpu)
+        toks = torch.randint(0, cfg1.vocab_size, (2, 64),
+                             generator=torch.Generator().manual_seed(seed))
+        grads_of = build_grad_fn(cfg1, run)
+        out = {}
+        for dev, pp in (("cuda", p_gpu), ("cpu", p_cpu)):
+            t = toks.to(dev)
+            loss, met, gr = grads_of(pp, {"tokens": t, "labels": t})
+            aux = met["aux"]
+            out[dev] = (loss.item(), float(aux), gr)
+        ok, worst = trees_close(tree_items, out["cuda"][2], out["cpu"][2])
+        dl = abs(out["cuda"][0] - out["cpu"][0])
+        print(f"[moe] {label}, one fp32 loss and gradient, card vs CPU: "
+              f"loss {out['cuda'][0]:.6f} vs {out['cpu'][0]:.6f} (aux "
+              f"{out['cuda'][1]:.6f} vs {out['cpu'][1]:.6f}); grads max "
+              f"|diff| {worst:.3e} (limit 2e-4 + 2e-4 * max |want| a leaf)",
+              flush=True)
+        if dl > FP32_TOL + FP32_TOL * abs(out["cpu"][0]) or not ok:
+            fail(f"{label}: card and CPU differ (loss {dl}, grads {worst})")
+        return out["cpu"][1]
+
+    card_vs_cpu("minicpm3-4b full width, 1 layer",
+                mc.replace(num_layers=1, dtype="float32"), 4)
+
+    # 14.4: an MoE training step at deepseek-v2's widths with 16 experts:
+    # the trainer keeps fp32 masters, gradients and AdamW state whole on
+    # one card (no ZeRO: "After the port"), and at 160 experts two layers
+    # take ~86 GB of that state alone
+    ds16 = ds.replace(num_layers=2, num_experts=16)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    session = Session(JobSpec(arch="deepseek-v2-236b", reduced=False,
+                              steps=3, batch=4, seq=512, log_every=0),
+                      config=ds16, device="cuda")
+    rep = session.train()
+    validate_report(rep.to_dict())
+    m = rep.measured
+    hist = m["metrics"]["histograms"]["train/step_s"]
+    print(f"[moe] deepseek-v2 widths, 16 experts (top-6, 2 shared), dense "
+          f"prelude + 1 MLA/MoE layer ({rep.meta['executed_config']['n_params']:,}"
+          f" params), Session.train() batch 4 x seq 512, 3 steps: losses "
+          f"{[round(v, 4) for v in m['losses']]}; step wall p50 "
+          f"{hist['p50'] * 1e3:.1f} ms (min {hist['min'] * 1e3:.1f}); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(max_memory_allocated); wall {time.perf_counter() - t0:.1f} s "
+          f"({card})", flush=True)
+    if not all(map(math.isfinite, m["losses"])):
+        fail(f"deepseek-v2 (16 experts) losses {m['losses']}: not finite")
+    del rep, session
+    torch.cuda.empty_cache()
+    aux = card_vs_cpu("deepseek-v2 widths, 16 experts, 1 MLA/MoE layer",
+                      ds.replace(num_layers=1, first_k_dense=0,
+                                 num_experts=16, dtype="float32"), 5)
+    if not aux > 0:
+        fail(f"the MoE aux loss is {aux}: it does not reach the loss")
+
+    # 14.5: 1F1B on deepseek-v2's reduced config deepened to two cycles a
+    # stage, both stages on this card, bitwise the single-stage trainer
+    red = ds.reduced().replace(num_layers=1 + 4, dtype="float32")
+    opt = OptConfig(lr=1e-3, warmup_steps=0)
+    p0 = M.init_params(red, 0, "cuda")
+    pt = PipelineTrainer(red, RunConfig(attn_impl="auto", remat="block"), opt,
+                         pipe=2, n_microbatch=4, devices=["cuda:0", "cuda:0"])
+    try:
+        res_p = pt.train(batch=8, seq=64, steps=2, log_every=0,
+                         params=tree_map(torch.clone, p0))
+    finally:
+        pt.close()
+    dp = DataParallelTrainer(red, RunConfig(attn_impl="auto", remat="block",
+                                            microbatch=2), opt,
+                             devices=["cuda:0"])
+    try:
+        res_d = dp.train(batch=8, seq=64, steps=2, log_every=0,
+                         params=tree_map(torch.clone, p0))
+    finally:
+        dp.close()
+    same = trees_equal(torch, tree_items, pt.params, dp.params[0])
+    print(f"[moe] PipelineTrainer (pipe 2, 4 microbatches, both stages on "
+          f"cuda:0; stage cut {pt.stage_cut}, the prelude on stage 0, "
+          f"(h, aux) carried) against DataParallelTrainer (dp 1, microbatch "
+          f"2), deepseek-v2 reduced with 4 MLA/MoE cycles, fp32, 2 steps: "
+          f"losses {res_p.losses} vs {res_d.losses}; params bitwise equal: "
+          f"{same}", flush=True)
+    if not same:
+        fail("the 1F1B trainer on an MoE + prelude model is not bitwise "
+             "the single-stage trainer")
+    del pt, dp, p0
+    torch.cuda.empty_cache()
+    moved = {n: fn.launches for n, fn in wrappers.items() if fn.launches}
+    if moved:
+        fail(f"deepseek-v2/minicpm3 paths launched kernels: {moved}")
+
+    # 14.6: arctic-480b, one layer at full width with 16 experts (at 128
+    # one layer is ~13.7e9 params, more than fp32 init + the bf16 copy
+    # fit): GQA serves on B1 (prefill) and B2 (decode)
+    ac = get_config("arctic-480b")
+    runs = serve_full_width(
+        torch, wrappers, "arctic-480b", ac.replace(num_layers=1,
+                                                   num_experts=16),
+        "arctic-480b full width, 1 layer, 16 experts (top-2, dense "
+        "residual MLP in parallel)", card)
+    for launches, prefills, steps in runs:
+        fa_n, dec_n = launches["flash_attention"], launches["decode_attention"]
+        if fa_n != prefills or dec_n != steps or not (fa_n and dec_n):
+            fail(f"arctic serving: flash launches {fa_n} (prefills "
+                 f"{prefills}), decode launches {dec_n} (engine steps "
+                 f"{steps})")
+    H, KV, D = ac.num_heads, ac.num_kv_heads, ac.head_dim
+    out = []
+    for S in (32, 64):  # the workload's prompt buckets
+        r = flash_case(torch, mods, S=S, H=H, KV=KV, D=D)
+        out.append((f"flash_attention[arctic-480b: S={S},H={H},KV={KV},"
+                    f"D={D}]", "flash_attention", {**r, "launches": fa_n}))
+    r = decode_case(torch, mods, B=4, S=512, pos=[40, 23, 55, 12], H=H,
+                    KV=KV, D=D)
+    out.append((f"decode_attention[arctic-480b: B=4,S=512,H={H},KV={KV},"
+                f"D={D}]", "decode_attention", {**r, "launches": dec_n}))
+    print_cases(out)
+    print(f"[moe] the three arctic-shape kernel cases above: {card}; phase "
+          f"wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1842,16 +2329,17 @@ def main() -> None:
     # 13. 1F1B pipeline parallelism ----------------------------------------------
     pipeline_phase(torch, wrappers, triad_12)
 
+    # 14. MLA, MoE and the dense prelude -------------------------------------------
+    cases += moe_mla_phase(torch, mods, wrappers)
+
     leaked = sorted(n for n in sys.modules
                     if n.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
                                            "repro"))
     if leaked:
         fail(f"the port imported {leaked[:5]}")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi)
+    print(card_label())
+    # a case of a later path carries that path's launches in r
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[kernel],
          "replaces": REPLACES[kernel], "launches": launches[kernel], **r}

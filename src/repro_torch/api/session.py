@@ -33,8 +33,10 @@ the steps as warmup).  It checkpoints into ``spec.ckpt_dir`` and resumes
 from it.  ``bench`` is the same run reported as ``bench``.
 ``Session.serve()`` runs the spec's serving workload through the static
 ``BatchScheduler`` or the continuous scheduler over the paged KV cache
-(sized by Eq. 5 on the mesh's chip), with attention on the hand-written
-kernels (``attn_impl="kernel"``), and reports the replica lemma's
+(sized by Eq. 5 on the mesh's chip), with GQA attention on the
+hand-written kernels (``attn_impl="kernel"``: B1 for prefill, B2 for
+decode) and MLA models on ``"dense"`` (:func:`serve_attn_impl`; JAX
+serves every model on ``"dense"``), and reports the replica lemma's
 prediction beside its measurement.
 
 ``Session.tune()`` closes the loop on measurements
@@ -87,6 +89,16 @@ if TYPE_CHECKING:  # core.autotune pulls in the kernels and the trainer
 LEMMA31_G = (2, 4, 8, 16)
 # the clusters the two meshes name: one H100 node, and two over InfiniBand
 MESH_CLUSTERS = {"single": "h100-8", "multi": "h100-2x8"}
+
+
+def serve_attn_impl(cfg: ModelConfig) -> str:
+    """The attention algorithm ``Session.serve()`` runs ``cfg`` on:
+    ``"kernel"`` where every attention slot is GQA, ``"dense"`` for an MLA
+    model, whose q/k and v head dims differ (the flash kernel, like JAX's
+    Pallas kernel, takes one head dim; MLA decodes in the absorbed-latent
+    form, which no kernel carries)."""
+    mla = any(s.mixer.startswith("mla") for s in cfg.pattern)
+    return "dense" if mla else "kernel"
 
 
 class Session:
@@ -472,7 +484,10 @@ class Session:
     def serve(self) -> Report:
         """Batched generation, measured end to end.  ``spec.serve_mode``
         picks the runtime: ``continuous`` (in-flight batching over the
-        paged KV cache) or ``static`` (the FIFO Engine/BatchScheduler)."""
+        paged KV cache) or ``static`` (the FIFO Engine/BatchScheduler).
+        GQA models run attention on the kernels (B1 prefill, B2 decode);
+        an MLA model (minicpm3-4b, deepseek-v2-236b) runs on ``"dense"``,
+        as JAX serves every model (:func:`serve_attn_impl`)."""
         if self.spec.serve_mode == "continuous":
             return self._serve_continuous()
         return self._serve_static()
@@ -603,7 +618,8 @@ class Session:
 
         spec, cfg = self.spec, self.cfg
         tracer, metrics = self._make_obs()
-        eng = Engine(cfg, RunConfig(attn_impl="kernel"), s_max=spec.s_max,
+        eng = Engine(cfg, RunConfig(attn_impl=serve_attn_impl(cfg)),
+                     s_max=spec.s_max,
                      seed=spec.seed, device=self.device, tracer=tracer,
                      metrics=metrics)
         sched = BatchScheduler(eng, max_batch=spec.max_batch)
@@ -629,7 +645,8 @@ class Session:
 
         spec, cfg = self.spec, self.cfg
         tracer, metrics = self._make_obs()
-        eng = ContinuousEngine(cfg, RunConfig(attn_impl="kernel"),
+        eng = ContinuousEngine(cfg,
+                               RunConfig(attn_impl=serve_attn_impl(cfg)),
                                s_max=spec.s_max, max_batch=spec.max_batch,
                                prefill_chunk=spec.prefill_chunk,
                                seed=spec.seed, device=self.device,

@@ -27,9 +27,16 @@ ranks with ``run.microbatch`` set to this trainer's rows per microbatch
 and shard, on the same token stream:
 
 * a stage runs the single-stage op sequence (``cast_params`` → embed →
-  the stage's cycles (``models.model.run_cycles``) → final norm → logits
-  → masked CE + 0.01·aux), split at cycle boundaries: both paths call the
-  same helpers of ``models/model.py``;
+  the ``first_k_dense`` prelude → the stage's cycles
+  (``models.model.run_cycles``) → final norm → logits → masked CE +
+  0.01·aux), split at cycle boundaries: both paths call the same helpers
+  of ``models/model.py``.  Stage 0 runs the embedding and the prelude;
+* the carry between stages is ``(h, aux)``, as in JAX: the activations
+  and the running MoE aux-loss sum, to which each stage adds its slots'
+  aux one at a time (as the single-stage stack does), so the last
+  stage's loss is ``ce + 0.01·aux`` of the same sum.  Every stage's aux
+  cotangent is the constant 0.01 (d loss / d aux), so the backward does
+  not thread it; a stage without MoE slots carries the float 0.0;
 * the **fwd** op runs under ``torch.no_grad()`` and keeps only the stage's
   input; the **bwd** op recomputes the stage forward with grad enabled and
   takes ``torch.autograd.grad`` (JAX's ``jax.vjp`` recompute), which keeps
@@ -52,9 +59,7 @@ and shard, on the same token stream:
 
 The tied-embedding add is the single-stage one only at ``dtype="float32"``
 (under bf16 the single-stage path sums the two cotangents in bf16 before
-the cast's backward).  The ported slots carry no MoE aux loss (the
-model's aux is the constant 0.0), so the carry between stages is ``h``
-alone.
+the cast's backward).
 
 Refused, with JAX's exception types: multi-codebook embeddings and image
 prefixes (``NotImplementedError``), ``run.microbatch`` (``ValueError``:
@@ -123,6 +128,8 @@ def _stage_params(params, cfg: ModelConfig, cut: Tuple[int, ...], s: int):
     }
     if s == 0:
         sp["embed"] = params["embed"]
+        if "prelude" in params:
+            sp["prelude"] = params["prelude"]
     if s == p - 1:
         sp["final_norm"] = params["final_norm"]
         if cfg.tie_embeddings:
@@ -133,6 +140,12 @@ def _stage_params(params, cfg: ModelConfig, cut: Tuple[int, ...], s: int):
         elif "lm_head" in params:
             sp["lm_head"] = params["lm_head"]
     return sp
+
+
+def _to(carry, dev):
+    """A stage's ``(h, aux)`` carry on ``dev`` (aux may be the float 0.0)."""
+    h, aux = carry
+    return h.to(dev), (aux.to(dev) if torch.is_tensor(aux) else aux)
 
 
 def pipeline_devices(device, world: int) -> List[torch.device]:
@@ -277,39 +290,53 @@ class PipelineTrainer:
     # ------------------------------------------------------------------
     def _stage_forward(self, s: int, sp, x, labels=None):
         """Stage ``s`` on its input: tokens (rows, S) on stage 0, else the
-        previous stage's ``h``.  Returns ``h``, or on the last stage the
-        loss (the single-stage ``loss_fn``'s op sequence, split at cycle
-        boundaries)."""
+        previous stage's ``(h, aux)``.  Returns ``(h, aux)``, or on the
+        last stage the loss (the single-stage ``loss_fn``'s op sequence,
+        split at cycle boundaries)."""
         cfg, p = self.cfg, self.pipe
         cp = M.cast_params(sp, cfg)
-        h = M.embed_tokens(cp, {"tokens": x}, cfg) if s == 0 else x
+        if s == 0:
+            h = M.embed_tokens(cp, {"tokens": x}, cfg)
+            h, _ = M.run_prelude(cp, h, M.positions_of(h), cfg, self.run)
+            aux = 0.0
+        else:
+            h, aux = x
         n = self.stage_cut[s + 1] - self.stage_cut[s]
-        h, _ = M.run_cycles(cp["slots"], h, M.positions_of(h), cfg, self.run,
-                            n)
+        h, _, aux = M.run_cycles(cp["slots"], h, M.positions_of(h), cfg,
+                                 self.run, n, aux=aux)
         if s < p - 1:
-            return h
+            return h, aux
         head = {"final_norm": cp["final_norm"]}
         if cfg.tie_embeddings:
             head["embed"] = cp["embed_out" if p > 1 else "embed"]
         else:
             head["lm_head"] = cp["lm_head"]
-        loss, _ = M.masked_loss(M.head_logits(head, h, cfg), labels, 0.0)
+        loss, _ = M.masked_loss(M.head_logits(head, h, cfg), labels, aux)
         return loss
 
     def _stage_grads(self, s: int, sp, x, labels=None, gy=None):
         """The bwd op's recompute: the stage forward with grad enabled and
         the gradients of its params (a tree) and, past stage 0, of its
         input ``h`` (the cotangent the previous stage's bwd takes).  ``gy``
-        is the cotangent of this stage's output (None on the last)."""
+        is the cotangent of this stage's output ``h`` (None on the last);
+        its aux output takes the constant cotangent ``M.AUX_WEIGHT``."""
         items = [(path, a.detach().requires_grad_())
                  for path, a in tree_items(sp)]
         leaves = [a for _, a in items]
-        h_in = None if s == 0 else x.detach().requires_grad_()
+        h_in = None if s == 0 else x[0].detach().requires_grad_()
         with torch.enable_grad():
             out = self._stage_forward(s, tree_unflatten(items),
-                                      x if h_in is None else h_in, labels)
+                                      x if h_in is None else (h_in, x[1]),
+                                      labels)
+            outs, cots = out, gy
+            if s < self.pipe - 1:
+                outs, cots = [out[0]], [gy]
+                aux = out[1]
+                if torch.is_tensor(aux) and aux.requires_grad:
+                    outs.append(aux)
+                    cots.append(torch.full_like(aux, M.AUX_WEIGHT))
             wrt = leaves if h_in is None else leaves + [h_in]
-            grads = torch_grad(out, wrt, gy)
+            grads = torch_grad(outs, wrt, cots)
         gp = tree_unflatten((path, g) for (path, _), g in zip(items, grads))
         return gp, (None if h_in is None else grads[-1])
 
@@ -357,6 +384,8 @@ class PipelineTrainer:
         # the tied head cotangents were folded into stage 0's embed
         # gradient per microbatch, so "embed" is complete here
         full[("embed",)] = shards[0].pop(("embed",)).to(dev)
+        for path in [q for q in shards[0] if q[0] == "prelude"]:
+            full[path] = shards[0].pop(path).to(dev)
         for key in ("final_norm", "lm_head"):
             if (key,) in shards[-1]:
                 full[(key,)] = shards[-1].pop((key,)).to(dev)
@@ -424,8 +453,8 @@ class PipelineTrainer:
 
         def shard(d):
             dev = self.grid[s][d]
-            x = (micro[j]["tokens"][d] if s == 0
-                 else st["outputs"].pop((s - 1, j, d))).to(dev)
+            x = (micro[j]["tokens"][d].to(dev) if s == 0
+                 else _to(st["outputs"].pop((s - 1, j, d)), dev))
             st["inputs"][(s, j, d)] = x
             labels = micro[j]["labels"][d].to(dev) if s == p - 1 else None
             with torch.no_grad():

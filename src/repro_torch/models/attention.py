@@ -1,5 +1,7 @@
-"""GQA attention mixer (the port of ``repro.models.attention``, GQA only):
-full-sequence path (prefill) and cached single-token decode.
+"""Attention mixers (the port of ``repro.models.attention``): GQA
+(optionally sliding-window / softcapped) and MLA (DeepSeek-V2 multi-head
+latent attention), each with a full-sequence path (train / prefill) and
+a cached single-token decode (MLA's in the absorbed-latent form).
 
 ``impl`` names the attention algorithm:
 
@@ -15,10 +17,15 @@ full-sequence path (prefill) and cached single-token decode.
   backward (neither have JAX's Pallas kernels), so training uses the other
   three.
 
-Shapes: x (B, S, D); caches are per-slot dicts of (B, S_max, KV, hd).
-MLA's forward and decode (its parameter shapes are here, for the
-planner), int8 KV caches and chunked prefill are not ported yet (ROADMAP
-A10, A11) and raise ``NotImplementedError``.
+MLA runs on the first three: its q/k head dim (``qk_nope + qk_rope``)
+differs from v's (``v_head_dim``), and the flash kernel, like JAX's Pallas
+kernel, takes one head dim for q, k and v, so ``mla_forward`` refuses
+``"kernel"`` with a ``ValueError``.
+
+Shapes: x (B, S, D); caches are per-slot dicts of (B, S_max, KV, hd)
+(GQA) or ``ckv`` (B, S_max, kv_lora_rank) and ``k_rope`` (B, S_max,
+qk_rope_head_dim) (MLA).  int8 KV caches and chunked prefill are not
+ported yet (ROADMAP A10) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ParamSpec, rope, softcap
+from repro_torch.models.common import ParamSpec, rms_norm, rope, softcap
 
 NEG_INF = -2.0e38
 IMPLS = ("dense", "chunked", "auto", "kernel")
@@ -60,8 +67,6 @@ def gqa_specs(cfg: ModelConfig, layers: int) -> Dict[str, ParamSpec]:
 
 
 def mla_specs(cfg: ModelConfig, layers: int) -> Dict[str, ParamSpec]:
-    """MLA's parameter shapes (its forward and decode are not ported yet,
-    ROADMAP A11)."""
     D, H = cfg.d_model, cfg.num_heads
     nope, rdim, vdim = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     qlr, kvlr = cfg.q_lora_rank, cfg.kv_lora_rank
@@ -304,6 +309,100 @@ def _cache_write(cache, new, pos):
 
 
 # ---------------------------------------------------------------------------
+# MLA mixer
+# ---------------------------------------------------------------------------
+
+
+def _mla_qkv(p, x, positions, cfg: ModelConfig):
+    nope = cfg.qk_nope_head_dim
+    cq = rms_norm(x @ p["wq_down"], p["q_norm"], cfg.norm_eps)
+    q = torch.einsum("bsl,lhk->bshk", cq, p["wq_up"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+
+    ckv_full = x @ p["wkv_down"]  # (B,S,kvlr+rdim)
+    kvlr = cfg.kv_lora_rank
+    ckv, k_rope = ckv_full[..., :kvlr], ckv_full[..., kvlr:]
+    ckv = rms_norm(ckv, p["kv_norm"], cfg.norm_eps)
+    # one shared rope head: rope takes (..., S, H, D), so add H = 1
+    k_rope = rope(k_rope[..., None, :], positions, cfg.rope_theta)[..., 0, :]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    """1/sqrt of the q/k head dim, ``qk_nope + qk_rope`` (not head_dim)."""
+    return 1.0 / np.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def _check_mla_impl(cfg: ModelConfig, impl: str) -> None:
+    _check_impl(impl)
+    if impl == "kernel":
+        raise ValueError(
+            "MLA has no kernel path: its q/k head dim (qk_nope + qk_rope = "
+            f"{cfg.qk_nope_head_dim + cfg.qk_rope_head_dim}) differs from v's "
+            f"({cfg.v_head_dim}), and the flash kernel (B1), like JAX's "
+            "Pallas kernel, takes one head dim for q, k and v; use dense, "
+            "chunked or auto")
+
+
+def mla_forward(p, x, positions, cfg: ModelConfig, mixer: str, *,
+                impl="dense", kv_block=1024, q_block=2048):
+    """Full-sequence MLA: per-head K/V reconstructed from the latent
+    (train / prefill).  Returns (out, {"ckv", "k_rope"})."""
+    _check_mla_impl(cfg, impl)
+    nope = cfg.qk_nope_head_dim
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, positions, cfg)
+    kv = torch.einsum("bsl,lhk->bshk", ckv, p["wkv_up"])
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(
+        k_nope.shape[:3] + (q_rope.shape[-1],))], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = attention(
+        q, k, v, positions, positions,
+        scale=_mla_scale(cfg),
+        window=_window_for(cfg, mixer),
+        cap=cfg.attn_softcap,
+        impl=impl, kv_block=kv_block, q_block=q_block,
+    )
+    return (torch.einsum("bshv,hvd->bsd", out, p["wo"]),
+            {"ckv": ckv, "k_rope": k_rope})
+
+
+def mla_decode(p, x, pos, cache, cfg: ModelConfig, mixer: str, *,
+               impl="dense"):
+    """Absorbed-latent decode: attend in the compressed kv_lora space (no
+    kernel carries it: ``impl="kernel"`` raises, as in the forward).
+    cache: ckv (B,Smax,kvlr), k_rope (B,Smax,rdim), written in place at
+    ``pos`` (widened first where the new entries are wider, as
+    :func:`gqa_decode`).  Logits in fp32 with the softcap and the mask;
+    the softmax is cast to the cache dtype."""
+    _check_mla_impl(cfg, impl)
+    nope = cfg.qk_nope_head_dim
+    B = x.shape[0]
+    q_nope, q_rope, ckv_new, k_rope_new = _mla_qkv(p, x, pos[:, None], cfg)
+    window = _window_for(cfg, mixer)
+    wpos, k_pos = _ring_positions(pos, cache["ckv"].shape[1], window, B)
+    ckv = _cache_write(cache["ckv"], ckv_new, wpos)
+    krope = _cache_write(cache["k_rope"], k_rope_new, wpos)
+
+    w_uk = p["wkv_up"][..., :nope]  # (kvlr, H, nope)
+    w_uv = p["wkv_up"][..., nope:]  # (kvlr, H, vdim)
+    q_abs = torch.einsum("bshn,lhn->bshl", q_nope, w_uk)  # absorbed query
+    logits = (
+        torch.einsum("bshl,bkl->bhsk", q_abs, ckv)
+        + torch.einsum("bshr,bkr->bhsk", q_rope, krope)
+    ).float() * _mla_scale(cfg)
+    logits = softcap(logits, cfg.attn_softcap)
+    m = _mask(pos[:, None], k_pos, window)[:, None]
+    logits = logits.masked_fill(~m, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(ckv.dtype)
+    ctx = torch.einsum("bhsk,bkl->bshl", probs, ckv)  # latent context
+    out = torch.einsum("bshl,lhv->bshv", ctx, w_uv)
+    return (torch.einsum("bshv,hvd->bsd", out, p["wo"]),
+            {"ckv": ckv, "k_rope": krope})
+
+
+# ---------------------------------------------------------------------------
 # Cache allocation
 # ---------------------------------------------------------------------------
 
@@ -311,14 +410,20 @@ def _cache_write(cache, new, pos):
 def attn_cache_specs(cfg: ModelConfig, mixer: str, layers: int, batch: int,
                      s_max: int, dtype: str = "bfloat16",
                      kv_quant: bool = False):
-    """ParamSpec-style descriptors for the per-slot KV cache (stacked layers)."""
+    """ParamSpec-style descriptors for the per-slot KV cache (stacked
+    layers): GQA's k/v, or MLA's latent ``ckv`` and shared ``k_rope``."""
+    L = (layers, batch)
+    la = ("layers", "batch")
     if mixer.startswith("mla"):
-        raise NotImplementedError("MLA caches are not ported yet (ROADMAP A11)")
+        return {
+            "ckv": ParamSpec(L + (s_max, cfg.kv_lora_rank), la + ("kv_seq", None),
+                             dtype=dtype, init="zeros"),
+            "k_rope": ParamSpec(L + (s_max, cfg.qk_rope_head_dim),
+                                la + ("kv_seq", None), dtype=dtype, init="zeros"),
+        }
     if kv_quant:
         raise NotImplementedError("int8 KV caches are not ported yet "
                                   "(ROADMAP A10)")
-    L = (layers, batch)
-    la = ("layers", "batch")
     KV, hd = cfg.num_kv_heads, cfg.head_dim
     return {
         "k": ParamSpec(L + (s_max, KV, hd), la + ("kv_seq", None, None),

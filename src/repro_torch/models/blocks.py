@@ -3,12 +3,13 @@ residual, optional post-norms — the port of ``repro.models.blocks``.
 
 ``slot_specs`` gives the parameter shapes of every slot kind (GQA, MLA,
 Mamba; dense, MoE, and arctic's dense + MoE), so the planner prices the
-full architecture of every arch.  Forward and decode run
-``("attn", "dense")`` slots; the others raise ``NotImplementedError``
-until their slice is ported (ROADMAP A11), and
+full architecture of every arch.  Forward and decode run the slots in
+``PORTED_SLOTS``: GQA or MLA mixers with the dense, MoE or arctic's
+dense + MoE MLP (each slot returns its MoE aux loss).  The others raise
+``NotImplementedError`` until their slice is ported (ROADMAP A11), and
 ``models.model.init_params`` refuses them before any parameter exists.
 The Mamba mixer itself is ``models/ssm.py``; its slot comes with Mamba
-serving."""
+serving (Next 8)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -20,14 +21,16 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import ParamSpec, rms_norm
 
-PORTED_SLOTS = (("attn", "dense"),)
+PORTED_SLOTS = (("attn", "dense"), ("mla", "dense"), ("mla", "moe"),
+                ("attn", "moe"), ("attn", "moe_dense"))
 REMATS = ("none", "block")
 
 
 @dataclass
 class RunConfig:
     """Runtime (non-architecture) knobs: the JAX package's, less the
-    sharding, MoE and dry-run fields, which nothing in the port reads."""
+    sharding, expert-parallel and dry-run fields, which nothing in the
+    port reads."""
 
     attn_impl: str = "dense"  # dense | chunked | auto | kernel (JAX's pallas)
     remat: str = "block"  # none | block (recompute each cycle in backward)
@@ -35,6 +38,7 @@ class RunConfig:
     kv_block: int = 1024  # chunked attention's key block
     q_block: int = 2048  # chunked attention's query block
     bf16_grads: bool = False  # mixed precision: grads computed in bf16
+    capacity_factor: float = 1.25  # MoE per-expert capacity factor
 
     def __post_init__(self):
         if self.remat not in REMATS:
@@ -84,14 +88,34 @@ def slot_specs(cfg: ModelConfig, slot: SlotSpec, layers: int) -> Dict[str, Any]:
     return s
 
 
-def _mlp_residual(p, h, cfg: ModelConfig):
+def _mixer_forward(p, h, positions, cfg: ModelConfig, slot: SlotSpec,
+                   run: RunConfig):
+    fn = attn.mla_forward if slot.mixer.startswith("mla") else attn.gqa_forward
+    return fn(p, h, positions, cfg, slot.mixer, impl=run.attn_impl,
+              kv_block=run.kv_block, q_block=run.q_block)
+
+
+def _mlp_forward(p, h, cfg: ModelConfig, slot: SlotSpec, run: RunConfig):
+    """(out, aux): aux is 0.0 for the dense MLP."""
+    if slot.mlp == "dense":
+        return moe_lib.dense_mlp(p, h), 0.0
+    if slot.mlp == "moe":
+        return moe_lib.moe_mlp(p, h, cfg,
+                               capacity_factor=run.capacity_factor)
+    # moe_dense: arctic's dense residual MLP in parallel with the MoE
+    y_moe, aux = moe_lib.moe_mlp(p["moe"], h, cfg,
+                                 capacity_factor=run.capacity_factor)
+    return moe_lib.dense_mlp(p["dense"], h) + y_moe, aux
+
+
+def _mlp_residual(p, h, cfg: ModelConfig, slot: SlotSpec, run: RunConfig):
     if "mlp_norm" not in p:
-        return h
+        return h, 0.0
     u = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
-    u = moe_lib.dense_mlp(p["mlp"], u)
+    u, aux = _mlp_forward(p["mlp"], u, cfg, slot, run)
     if cfg.use_post_norm:
         u = rms_norm(u, p["mlp_post_norm"], cfg.norm_eps)
-    return h + u
+    return h + u, aux
 
 
 # ---------------------------------------------------------------------------
@@ -104,12 +128,11 @@ def slot_forward(p, h, positions, cfg: ModelConfig, slot: SlotSpec,
     """Returns (h, cache, aux_loss)."""
     check_slot(slot)
     u = rms_norm(h, p["mixer_norm"], cfg.norm_eps)
-    u, cache = attn.gqa_forward(p["mixer"], u, positions, cfg, slot.mixer,
-                                impl=run.attn_impl, kv_block=run.kv_block,
-                                q_block=run.q_block)
+    u, cache = _mixer_forward(p["mixer"], u, positions, cfg, slot, run)
     if cfg.use_post_norm:
         u = rms_norm(u, p["mixer_post_norm"], cfg.norm_eps)
-    return _mlp_residual(p, h + u, cfg), cache, 0.0
+    h, aux = _mlp_residual(p, h + u, cfg, slot, run)
+    return h, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -121,11 +144,16 @@ def slot_decode(p, h, pos, cache, cfg: ModelConfig, slot: SlotSpec,
                 run: RunConfig):
     check_slot(slot)
     u = rms_norm(h, p["mixer_norm"], cfg.norm_eps)
-    u, new_cache = attn.gqa_decode(p["mixer"], u, pos, cache, cfg, slot.mixer,
-                                   impl=run.attn_impl)
+    if slot.mixer.startswith("mla"):
+        u, new_cache = attn.mla_decode(p["mixer"], u, pos, cache, cfg,
+                                       slot.mixer, impl=run.attn_impl)
+    else:
+        u, new_cache = attn.gqa_decode(p["mixer"], u, pos, cache, cfg,
+                                       slot.mixer, impl=run.attn_impl)
     if cfg.use_post_norm:
         u = rms_norm(u, p["mixer_post_norm"], cfg.norm_eps)
-    return _mlp_residual(p, h + u, cfg), new_cache
+    h, _ = _mlp_residual(p, h + u, cfg, slot, run)
+    return h, new_cache
 
 
 def slot_cache_specs(cfg: ModelConfig, slot: SlotSpec, layers: int, batch: int,
@@ -134,5 +162,6 @@ def slot_cache_specs(cfg: ModelConfig, slot: SlotSpec, layers: int, batch: int,
     check_slot(slot)
     window = attn._window_for(cfg, slot.mixer)
     eff = min(s_max, window) if window else s_max
+    quant = kv_quant and not slot.mixer.startswith("mla")  # MLA stays bf16
     return attn.attn_cache_specs(cfg, slot.mixer, layers, batch, eff, dtype,
-                                 kv_quant=kv_quant)
+                                 kv_quant=quant)

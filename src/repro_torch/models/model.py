@@ -1,8 +1,9 @@
 """Top-level decoder (the port of ``repro.models.model``): token embedding,
-the block stack, the LM head, the loss, and the three entry points
+the ``first_k_dense`` prelude, the block stack, the LM head, the loss, and
+the three entry points
 
   * ``forward``      — full-sequence logits (+ prefill caches)
-  * ``loss_fn``      — masked next-token cross-entropy (training)
+  * ``loss_fn``      — masked next-token cross-entropy + 0.01 x MoE aux
   * ``decode_step``  — single-token cached decoding
 
 Parameters for slot ``i`` are stacked over ``num_cycles`` (dim 0), as in
@@ -12,9 +13,12 @@ and ``remat="block"`` recomputes each cycle in the backward pass
 ``model_specs`` gives the parameter shapes of every architecture (the
 planner prices the full model); :func:`init_params`, which every entry
 point materializes through, refuses a model the port cannot run before
-any parameter exists.  Chunked prefill (``extend_step``), multi-codebook
-models, image prefixes, ``first_k_dense`` preludes and the slots other
-than ``("attn", "dense")`` are not ported yet (ROADMAP A10, A11).
+any parameter exists.  The prelude (``first_k_dense`` layers: slot 0's
+mixer with the dense MLP at ``cfg.d_ff``) runs before the cycles in
+every entry point, and the slots' MoE aux losses are summed over the
+cycles, one at a time in layer order.  Chunked prefill (``extend_step``),
+multi-codebook models, image prefixes and the Mamba slot are not ported
+yet (ROADMAP A10, A11).
 """
 from __future__ import annotations
 
@@ -34,10 +38,23 @@ from repro_torch.models.common import (ParamSpec, cross_entropy, materialize,
 
 
 def _check_config(cfg: ModelConfig) -> None:
-    if cfg.num_codebooks or cfg.num_image_tokens or cfg.first_k_dense:
+    if cfg.num_codebooks or cfg.num_image_tokens:
         raise NotImplementedError(
-            f"{cfg.name}: multi-codebook, image-prefix and first_k_dense "
-            "models are not ported yet (ROADMAP A11)")
+            f"{cfg.name}: multi-codebook and image-prefix models are not "
+            "ported yet (ROADMAP A11)")
+
+
+def prelude_slot(cfg: ModelConfig) -> SlotSpec:
+    """The ``first_k_dense`` layers' slot: slot 0's mixer, dense MLP."""
+    return SlotSpec(cfg.pattern[0].mixer, "dense")
+
+
+def supports_extend(cfg: ModelConfig) -> bool:
+    """Whether the config could run chunked prefill (``extend_step``, not
+    ported yet): attention-only stacks, as in JAX.  Mamba state folds the
+    whole prefix and MLA decodes in absorbed-latent form, so both take
+    whole-prompt prefill."""
+    return all(s.mixer in ("attn", "swa") for s in cfg.pattern)
 
 
 # ---------------------------------------------------------------------------
@@ -70,8 +87,7 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
         s["embed"] = ParamSpec((V, D), ("vocab", "embed"))
     if cfg.first_k_dense:
         # prelude layers: same mixer as slot 0, dense MLP at cfg.d_ff
-        pre_slot = SlotSpec(cfg.pattern[0].mixer, "dense")
-        s["prelude"] = slot_specs(cfg, pre_slot, cfg.first_k_dense)
+        s["prelude"] = slot_specs(cfg, prelude_slot(cfg), cfg.first_k_dense)
     cycles = main_cycles(cfg)
     s["slots"] = {
         f"slot{i}": slot_specs(cfg, slot, cycles)
@@ -93,12 +109,18 @@ def main_cycles(cfg: ModelConfig) -> int:
 def cache_specs(cfg: ModelConfig, batch: int, s_max: int,
                 dtype: str = "bfloat16", kv_quant: bool = False) -> Dict[str, Any]:
     _check_config(cfg)
+    c: Dict[str, Any] = {}
+    if cfg.first_k_dense:
+        c["prelude"] = slot_cache_specs(cfg, prelude_slot(cfg),
+                                        cfg.first_k_dense, batch, s_max,
+                                        dtype, kv_quant)
     cycles = main_cycles(cfg)
-    return {"slots": {
+    c["slots"] = {
         f"slot{i}": slot_cache_specs(cfg, slot, cycles, batch, s_max, dtype,
                                      kv_quant)
         for i, slot in enumerate(cfg.pattern)
-    }}
+    }
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -163,31 +185,61 @@ def positions_of(h: torch.Tensor) -> torch.Tensor:
 
 
 def run_cycles(slots, h, positions, cfg: ModelConfig, run: RunConfig,
-               n_cycles: int, with_cache: bool = False):
+               n_cycles: int, with_cache: bool = False, aux=0.0,
+               pattern=None):
     """The block stack over ``n_cycles`` stacked cycles of ``slots`` (the
-    whole model's, or a pipeline stage's slice of it).  Returns (h, the
-    per-cycle caches when ``with_cache``, else [])."""
-    slot_names = [f"slot{i}" for i in range(len(cfg.pattern))]
+    whole model's, or a pipeline stage's slice of it).  ``pattern`` is a
+    list of (name, SlotSpec) pairs, each cycle's slots in order (default:
+    ``slot{i}`` of ``cfg.pattern``); the prelude passes its one slot with
+    ``slots`` as ``{"prelude": params["prelude"]}``.  Returns (h, the
+    per-cycle caches when ``with_cache``, else [], aux): ``aux`` plus
+    every slot's MoE aux loss, added one at a time in layer order, so a
+    pipeline stage that starts from the previous stage's sum ends where
+    the whole stack does."""
+    if pattern is None:
+        pattern = [(f"slot{i}", slot) for i, slot in enumerate(cfg.pattern)]
 
-    def cycle(h, layer):
+    def cycle(h, layer, aux):
         caches = {}
-        for n, slot in zip(slot_names, cfg.pattern):
-            h, caches[n], _ = slot_forward(layer[n], h, positions, cfg, slot,
+        for n, slot in pattern:
+            h, caches[n], a = slot_forward(layer[n], h, positions, cfg, slot,
                                            run)
-        return h, caches
+            aux = aux + a
+        return h, caches, aux
 
     # remat only where there is a backward to recompute for (training)
     remat = run.remat == "block" and h.requires_grad and not with_cache
     per_cycle = []
     for layer in _layers(slots, n_cycles):
         if remat:
-            h = checkpoint(lambda x, lp=layer: cycle(x, lp)[0], h,
-                           use_reentrant=False, preserve_rng_state=False)
+            h, aux = checkpoint(
+                lambda x, a, lp=layer: cycle(x, lp, a)[::2], h, aux,
+                use_reentrant=False, preserve_rng_state=False)
             continue
-        h, caches = cycle(h, layer)
+        h, caches, aux = cycle(h, layer, aux)
         if with_cache:
             per_cycle.append(caches)
-    return h, per_cycle
+    return h, per_cycle, aux
+
+
+def run_prelude(params, h, positions, cfg: ModelConfig, run: RunConfig,
+                with_cache: bool = False):
+    """The ``first_k_dense`` prelude (no-op without one).  Returns (h, its
+    per-layer caches when ``with_cache``); its dense slots carry no aux."""
+    if not cfg.first_k_dense:
+        return h, []
+    h, per_layer, _ = run_cycles(
+        {"prelude": params["prelude"]}, h, positions, cfg, run,
+        cfg.first_k_dense, with_cache,
+        pattern=[("prelude", prelude_slot(cfg))])
+    return h, per_layer
+
+
+def _stack_caches(per_cycle):
+    """{name: {leaf: (cycles, ...)}} from a non-empty list of per-cycle
+    caches."""
+    return {n: {k: torch.stack([c[n][k] for c in per_cycle])
+                for k in per_cycle[0][n]} for n in per_cycle[0]}
 
 
 def head_logits(params, h, cfg: ModelConfig):
@@ -197,7 +249,11 @@ def head_logits(params, h, cfg: ModelConfig):
     return lm_logits(params, h, cfg)
 
 
-def masked_loss(logits, labels, aux, aux_weight: float = 0.01):
+# the MoE aux loss's weight in the training loss (d loss / d aux)
+AUX_WEIGHT = 0.01
+
+
+def masked_loss(logits, labels, aux, aux_weight: float = AUX_WEIGHT):
     """(ce + aux_weight * aux, ce): the CE over ``labels`` >= 0."""
     mask = (labels >= 0).float()
     ce = cross_entropy(logits, torch.clamp(labels, min=0), mask)
@@ -207,23 +263,34 @@ def masked_loss(logits, labels, aux, aux_weight: float = 0.01):
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             run: RunConfig, with_cache: bool = False):
     """Full-sequence forward over ``batch["tokens"]`` (B,S).  Returns
-    (logits, caches, aux_loss); caches are stacked (cycles, B, S, KV, hd)
-    per slot."""
+    (logits, caches, aux_loss); caches are stacked (cycles, B, S, ...) per
+    slot (and (first_k_dense, B, S, ...) under ``prelude``)."""
     check_ported(cfg)
     params = cast_params(params, cfg)
     h = embed_tokens(params, batch, cfg)
-    h, per_cycle = run_cycles(params["slots"], h, positions_of(h), cfg, run,
-                              main_cycles(cfg), with_cache)
+    positions = positions_of(h)
+    h, pre = run_prelude(params, h, positions, cfg, run, with_cache)
+    h, per_cycle, aux = run_cycles(params["slots"], h, positions, cfg, run,
+                                   main_cycles(cfg), with_cache)
     logits = head_logits(params, h, cfg)
     if not with_cache:
-        return logits, None, 0.0
-    stacked = {n: {k: torch.stack([c[n][k] for c in per_cycle])
-                   for k in per_cycle[0][n]} for n in per_cycle[0]}
-    return logits, {"slots": stacked}, 0.0
+        return logits, None, aux
+    if per_cycle:
+        caches = {"slots": _stack_caches(per_cycle)}
+    else:  # no cycle (a reduced config that is all prelude): zero-size
+        # leaves, as JAX's scan over zero cycles gives
+        B, S = h.shape[:2]
+        caches = {"slots": tree_map(
+            lambda sp: torch.zeros(sp.shape, dtype=torch_dtype(sp.dtype),
+                                   device=h.device),
+            cache_specs(cfg, B, S, cfg.dtype)["slots"])}
+    if cfg.first_k_dense:
+        caches["prelude"] = _stack_caches(pre)["prelude"]
+    return logits, caches, aux
 
 
 def loss_fn(params, batch, cfg: ModelConfig, run: RunConfig,
-            aux_weight: float = 0.01):
+            aux_weight: float = AUX_WEIGHT):
     """Masked next-token CE. ``labels`` < 0 are ignored. For image-prefix
     inputs the prefix positions carry no labels (the labels are padded
     with -1 in front).  Returns (loss, {"ce", "aux"})."""
@@ -249,26 +316,32 @@ def decode_step(params, tokens: torch.Tensor, pos: torch.Tensor, caches,
 
     tokens (B,1) int; pos (B,) int absolute positions; caches as produced
     by ``cache_specs``.  Returns (logits, new_caches).  The caches are
-    written in place (each layer's new K/V at ``pos``); a cache whose dtype
-    is narrower than the compute dtype is first widened, the dtype JAX's
-    one-hot cache write promotes it to, so the returned tree may hold new
-    tensors."""
+    written in place (each layer's new entries at ``pos``); a cache whose
+    dtype is narrower than the compute dtype is first widened, the dtype
+    JAX's one-hot cache write promotes it to, so the returned tree may
+    hold new tensors."""
     check_ported(cfg)
     params = cast_params(params, cfg)
     h = embed_tokens(params, {"tokens": tokens}, cfg)
+
+    def widen(tree):
+        return {k: c.to(torch.promote_types(c.dtype, h.dtype))
+                for k, c in tree.items()}
+
     slot_names = [f"slot{i}" for i in range(len(cfg.pattern))]
-    caches = {n: dict(caches["slots"][n]) for n in slot_names}
-    for n in slot_names:
-        for k, c in caches[n].items():
-            dt = torch.promote_types(c.dtype, h.dtype)
-            if dt != c.dtype:
-                caches[n][k] = c.to(dt)
+    new = {"slots": {n: widen(caches["slots"][n]) for n in slot_names}}
+    # the per-layer cache views alias the stacked tensors, so the in-place
+    # writes land in the returned tree
+    if cfg.first_k_dense:
+        new["prelude"] = widen(caches["prelude"])
+        pre = prelude_slot(cfg)
+        for i in range(cfg.first_k_dense):
+            h, _ = slot_decode(_layer(params["prelude"], i), h, pos,
+                               _layer(new["prelude"], i), cfg, pre, run)
     for i in range(main_cycles(cfg)):
         for n, slot in zip(slot_names, cfg.pattern):
-            # the per-layer cache views alias the stacked tensors, so the
-            # in-place write lands in caches[n]
             h, _ = slot_decode(_layer(params["slots"][n], i), h, pos,
-                               _layer(caches[n], i), cfg, slot, run)
+                               _layer(new["slots"][n], i), cfg, slot, run)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(params, h, cfg)
-    return logits, {"slots": caches}
+    return logits, new

@@ -1,15 +1,29 @@
-"""The dense SwiGLU MLP (the port of ``repro.models.moe``'s dense part)
-and the MoE MLP's parameter shapes.
+"""Mixture-of-Experts MLP with sort-based capacity dispatch and the dense
+SwiGLU MLP (the port of ``repro.models.moe``; arctic's parallel dense +
+MoE form is composed in ``blocks.py``, as in JAX; the expert-parallel
+``moe_mlp_sharded`` is not ported, ROADMAP Queue A's last item).
 
-The MoE MLP's forward (router and capacity dispatch) and arctic's
-parallel dense+MoE residual are not ported yet (ROADMAP A11); its shapes
-are here so the planner prices MoE architectures."""
+Dispatch is gather/scatter, not a one-hot einsum: assignments are sorted
+by expert (stable), each expert takes at most ``C`` of them into an
+``(E, C, D)`` buffer, and the experts run as grouped einsums.  The
+port's dispatch and combine pick JAX's assignments and JAX's order of
+additions, and are deterministic on the card: no index a backward pass
+accumulates into is hit twice (see :func:`moe_mlp`).
+"""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import ParamSpec, swish
+
+
+# ---------------------------------------------------------------------------
+# Dense SwiGLU MLP
+# ---------------------------------------------------------------------------
 
 
 def dense_mlp_specs(d_model: int, d_ff: int, layers: int) -> Dict[str, ParamSpec]:
@@ -25,15 +39,128 @@ def dense_mlp(p, x):
     return (swish(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+
 def moe_specs(cfg: ModelConfig, layers: int) -> Dict[str, ParamSpec]:
-    D, F, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    D, F_, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
     L, la = (layers,), ("layers",)
     s = {
         "router": ParamSpec(L + (D, E), la + ("embed", None), scale=0.1),
-        "w_gate": ParamSpec(L + (E, D, F), la + ("experts", "embed", None)),
-        "w_up": ParamSpec(L + (E, D, F), la + ("experts", "embed", None)),
-        "w_down": ParamSpec(L + (E, F, D), la + ("experts", None, "embed")),
+        "w_gate": ParamSpec(L + (E, D, F_), la + ("experts", "embed", None)),
+        "w_up": ParamSpec(L + (E, D, F_), la + ("experts", "embed", None)),
+        "w_down": ParamSpec(L + (E, F_, D), la + ("experts", None, "embed")),
     }
     if cfg.num_shared_experts:
         s["shared"] = dense_mlp_specs(D, cfg.moe_d_ff * cfg.num_shared_experts, layers)
     return s
+
+
+def _router_topk(logits: torch.Tensor, top_k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """logits (T, E) -> (weights (T,k) fp32, experts (T,k), aux_loss scalar).
+
+    Softmax in fp32, top-k, renormalise; the Switch-style load-balance aux
+    ``E * sum_e f_e * p_e`` on the top-1 proxy.  Among equal probabilities
+    the lower expert index comes first, as ``jax.lax.top_k`` orders them
+    (a stable descending sort; ``torch.topk`` makes no such promise)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    idx = torch.sort(probs.detach(), dim=-1, descending=True,
+                     stable=True).indices[:, :top_k]
+    w = torch.gather(probs, -1, idx)
+    w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+    E = logits.shape[-1]
+    me = probs.mean(dim=0)  # mean router prob per expert
+    fe = F.one_hot(idx[:, 0], E).float().mean(dim=0)  # top-1 fraction
+    aux = E * torch.sum(fe * me)
+    return w, idx, aux
+
+
+def route(p, xf: torch.Tensor, cfg: ModelConfig, capacity_factor: float):
+    """The dispatch plan of tokens xf (T, D): (w, idx, aux) from the
+    router, and per assignment in expert-sorted order ``order`` (indices
+    into the flat (T*K,) assignments), its ``slot`` in the (E*C + 1)-row
+    buffer (E*C is the drop bin), ``keep`` and its weight ``sw``."""
+    T = xf.shape[0]
+    E, K = cfg.num_experts, cfg.top_k
+    w, idx, aux = _router_topk(xf @ p["router"], K)
+    C = max(int(capacity_factor * T * K / E) + 1, 4)  # JAX's float order
+    flat_e = idx.reshape(-1)  # (T*K,)
+    order = torch.argsort(flat_e, stable=True)
+    se, sw = flat_e[order], w.reshape(-1)[order]
+    # position of each assignment within its expert group
+    expert_start = torch.searchsorted(se, torch.arange(E, device=se.device))
+    pos = torch.arange(T * K, device=se.device) - expert_start[se]
+    keep = pos < C
+    slot = torch.where(keep, se * C + pos, torch.full_like(se, E * C))
+    return {"w": w, "idx": idx, "aux": aux, "C": C, "order": order,
+            "slot": slot, "keep": keep, "sw": sw}
+
+
+def moe_mlp(p, x, cfg: ModelConfig, *, capacity_factor: float = 1.25):
+    """x (B, S, D) -> ((B, S, D), aux); sort-based dispatch with
+    per-expert capacity ``C = max(int(cf * T * K / E) + 1, 4)``.
+
+    Deterministic where JAX's literal form is not on the card:
+
+    * the assignments' inputs are ``xf`` expanded K times and permuted
+      (JAX's ``xf[st]``, whose backward would accumulate K duplicates a
+      token with atomics); the permutation's backward hits each row once;
+    * the dispatch writes each kept assignment to its own buffer row;
+      only the drop bin is written twice, and it is cut away;
+    * the combine gathers each token's K weighted rows (a permutation)
+      and adds them in ascending expert order from fp32 zeros: the order
+      XLA's ``.at[st].add`` applies them in on the CPU.  The drop row of
+      the expert output stays a constant zero row, as in JAX.
+    """
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    T = B * S
+    xf = x.reshape(T, D)
+    r = route(p, xf, cfg, capacity_factor)
+    C, order, slot, keep = r["C"], r["order"], r["slot"], r["keep"]
+
+    xs = xf[:, None].expand(T, K, D).reshape(T * K, D)[order]
+    buf = xf.new_zeros((E * C + 1, D)).index_put((slot,), xs)
+    h = buf[: E * C].reshape(E, C, D)
+    y = torch.einsum(
+        "ecf,efd->ecd",
+        swish(torch.einsum("ecd,edf->ecf", h, p["w_gate"]))
+        * torch.einsum("ecd,edf->ecf", h, p["w_up"]),
+        p["w_down"])
+    y = torch.cat([y.reshape(E * C, D), y.new_zeros((1, D))], dim=0)
+
+    # combine: v[i] is sorted assignment i's weighted output (fp32); a
+    # token's assignments sit at the sorted positions inv[t*K:(t+1)*K],
+    # whose ascending order is ascending expert order
+    v = (y[slot] * torch.where(keep, r["sw"], 0.0)[:, None]).float()
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(T * K, device=order.device)
+    v_tok = v[torch.sort(inv.reshape(T, K), dim=-1).values]  # (T, K, D)
+    out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    for j in range(K):
+        out = out + v_tok[:, j]
+    out = out.to(x.dtype).reshape(B, S, D)
+    if cfg.num_shared_experts:
+        out = out + dense_mlp(p["shared"], x)
+    return out, r["aux"]
+
+
+def moe_mlp_ref(p, x, cfg: ModelConfig):
+    """The all-experts plain reference (no capacity; test-only): every
+    expert on every token, then each token's top-k outputs weighted."""
+    B, S, D = x.shape
+    xf = x.reshape(-1, D)
+    w, idx, _ = _router_topk(xf @ p["router"], cfg.top_k)
+    all_y = torch.einsum(
+        "ecf,efd->ecd",
+        swish(torch.einsum("td,edf->etf", xf, p["w_gate"]))
+        * torch.einsum("td,edf->etf", xf, p["w_up"]),
+        p["w_down"])  # (E, T, D)
+    picked = all_y[idx, torch.arange(xf.shape[0], device=x.device)[:, None]]
+    out = torch.sum(picked * w[..., None], dim=1).to(x.dtype).reshape(B, S, D)
+    if cfg.num_shared_experts:
+        out = out + dense_mlp(p["shared"], x)
+    return out

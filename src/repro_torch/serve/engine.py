@@ -60,8 +60,12 @@ def place_prefill_cache(cfg: ModelConfig, caches, s_max: int, prompt_len: int,
             out[name] = buf
         return out
 
-    return {"slots": {f"slot{i}": place_slot(slot, caches["slots"][f"slot{i}"])
-                      for i, slot in enumerate(cfg.pattern)}}
+    placed = {"slots": {f"slot{i}": place_slot(slot,
+                                               caches["slots"][f"slot{i}"])
+                        for i, slot in enumerate(cfg.pattern)}}
+    if cfg.first_k_dense:
+        placed["prelude"] = place_slot(M.prelude_slot(cfg), caches["prelude"])
+    return placed
 
 
 def greedy(logits: torch.Tensor, metrics: MetricsRegistry) -> np.ndarray:

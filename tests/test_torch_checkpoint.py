@@ -43,7 +43,7 @@ from repro_torch.models.blocks import RunConfig
 from repro_torch.models.common import tree_items
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.obs import Tracer
-from repro_torch.optim.adamw import OptConfig
+from repro_torch.optim.adamw import OptConfig, init_state
 from repro_torch.train import loop as tloop
 
 TOL = 2e-4
@@ -439,6 +439,42 @@ def test_resume_across_packages(tmp_path, writer):
     np.testing.assert_allclose(head, ref[:2], rtol=1e-6)
     tail = then[0](then[1], p0, steps=4, ckpt_dir=ck, ckpt_every=2)
     assert len(tail) == 2 and latest_step(ck) == 4
+    np.testing.assert_allclose(tail, ref[2:], atol=TOL, rtol=TOL)
+
+
+def moe_cfgs():
+    """deepseek-v2's reduced config with one MLA + MoE cycle after its
+    dense prelude layer, fp32, in both packages."""
+    kw = dict(vocab_size=256, num_layers=2, dtype="float32")
+    return (jax_get_config("deepseek-v2-236b").reduced().replace(**kw),
+            get_config("deepseek-v2-236b").reduced().replace(**kw))
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_moe_prelude_checkpoint_across_packages(tmp_path, writer):
+    """A deepseek-v2 checkpoint (prelude, MLA, router, routed and shared
+    experts, the AdamW moments) written by one package restores in the
+    other: every leaf of the port's tree is in it, and the reader's loop
+    resumes the writer's run at fp32 2e-4."""
+    jcfg, tcfg = moe_cfgs()
+    p0 = _jax_params(jcfg)
+    ck = str(tmp_path / "ck")
+    first, then = ((_jax_loop, jcfg), (_port_loop, tcfg))
+    if writer == "port":
+        first, then = then, first
+    ref = first[0](first[1], p0, steps=3)
+    first[0](first[1], p0, steps=2, ckpt_dir=ck, ckpt_every=2)
+    params = params_from_numpy(p0, tcfg, "cpu")
+    template = {"params": params,
+                "opt_state": init_state(run_opt()[1], params)}
+    out, step = restore(_zeros_like(template), ck)  # raises on a missing key
+    assert step == 2
+    leaves = dict(tree_items(out["params"]))
+    assert ("prelude", "mlp", "w_gate") in leaves
+    assert ("slots", "slot0", "mlp", "router") in leaves
+    assert ("slots", "slot0", "mlp", "shared", "w_up") in leaves
+    tail = then[0](then[1], p0, steps=3, ckpt_dir=ck, ckpt_every=2)
+    assert len(tail) == 1
     np.testing.assert_allclose(tail, ref[2:], atol=TOL, rtol=TOL)
 
 

@@ -477,3 +477,97 @@ def test_pipeline_trainer_on_one_card(cuda):
         assert d[~tiny].max().item() <= lim, path
         if bool(tiny.any()):
             assert d[tiny].max().item() <= 2 * opt.lr + 2e-4, path
+
+
+def _grid_moe(cuda, experts=32, tokens=(4, 256)):
+    """deepseek-v2's MoE at full width with ``experts`` experts, and its
+    router inputs on a grid (x in halves, the router in 2^-10 steps) where
+    every dot product is exact in fp32 on any device and in any order."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.common import materialize, tree_map
+
+    cfg = get_config("deepseek-v2-236b").replace(num_experts=experts)
+    p = tree_map(lambda a: a[0], materialize(moe.moe_specs(cfg, 1), 0, cuda))
+    g = torch.Generator(device=cuda).manual_seed(15)
+    p["router"] = torch.randint(-8, 9, p["router"].shape, generator=g,
+                                device=cuda).float() * 2.0 ** -10
+    x = torch.randint(-2, 3, tokens + (cfg.d_model,), generator=g,
+                      device=cuda).float() / 2
+    return cfg, p, x
+
+
+@pytest.mark.gpu
+def test_moe_mlp_on_card(cuda):
+    """chip_smoke.py phase 14.2: moe_mlp at deepseek-v2's width against
+    the all-experts reference where nothing drops (fp32, 2e-4); at
+    capacity 1.25 the top-k indices and keep mask of the CPU run; output,
+    aux and the gradients of x and the router bitwise equal across two
+    runs (no atomics in the dispatch or the combine)."""
+    from repro_torch.models import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p, x = _grid_moe(cuda)
+    T = x.shape[0] * x.shape[1]
+    with torch.no_grad():
+        big = cfg.num_experts / cfg.top_k  # C > T: room for every assignment
+        assert bool(moe.route(p, x.reshape(T, -1), cfg, big)["keep"].all())
+        got, _ = moe.moe_mlp(p, x, cfg, capacity_factor=big)
+        want = moe.moe_mlp_ref(p, x, cfg)
+        lim = 2e-4 + 2e-4 * want.abs().max().item()
+        assert (got - want).abs().max().item() <= lim
+        card = moe.route(p, x.reshape(T, -1), cfg, 1.25)
+        cpu = moe.route({"router": p["router"].cpu()}, x.reshape(T, -1).cpu(),
+                        cfg, 1.25)
+    assert torch.equal(card["idx"].cpu(), cpu["idx"])
+    assert torch.equal(card["order"].cpu(), cpu["order"])
+    assert torch.equal(card["keep"].cpu(), cpu["keep"])
+    runs = []
+    for _ in range(2):
+        xr = x.clone().requires_grad_()
+        router = p["router"].clone().requires_grad_()
+        out, aux = moe.moe_mlp({**p, "router": router}, xr, cfg)
+        (out.square().mean() + aux).backward()
+        runs.append((out.detach(), aux.detach(), xr.grad, router.grad))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_moe_prelude_pipeline_on_one_card_bitwise(cuda):
+    """chip_smoke.py phase 14.5: 1F1B at pipe 2 (both stages on cuda:0) on
+    deepseek-v2's reduced config with 4 MLA/MoE cycles after the dense
+    prelude, fp32, 2 steps: every param bitwise the single-stage
+    trainer's (dp 1, run.microbatch = rows a microbatch)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.pipeline import PipelineTrainer
+    from repro_torch.distributed.trainer import DataParallelTrainer
+    from repro_torch.models import model as M
+    from repro_torch.models.blocks import RunConfig
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.optim.adamw import OptConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("deepseek-v2-236b").reduced().replace(
+        num_layers=1 + 4, dtype="float32")
+    opt = OptConfig(lr=1e-3, warmup_steps=0)
+    run = RunConfig(attn_impl="auto", remat="block")
+    p0 = M.init_params(cfg, 0, cuda)
+    pt = PipelineTrainer(cfg, run, opt, pipe=2, n_microbatch=4,
+                         devices=["cuda:0", "cuda:0"])
+    try:
+        pt.train(batch=8, seq=64, steps=2, log_every=0,
+                 params=tree_map(torch.clone, p0))
+    finally:
+        pt.close()
+    dp = DataParallelTrainer(cfg, RunConfig(attn_impl="auto", remat="block",
+                                            microbatch=2), opt,
+                             devices=["cuda:0"])
+    try:
+        dp.train(batch=8, seq=64, steps=2, log_every=0,
+                 params=tree_map(torch.clone, p0))
+    finally:
+        dp.close()
+    want = dict(tree_items(dp.params[0]))
+    for path, got in tree_items(pt.params):
+        assert torch.equal(got, want[path]), path

@@ -266,13 +266,28 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         tattn.attn_cache_specs(tcfg, "attn", 1, 1, 8, kv_quant=True)
     # the specs of every arch exist (the planner prices them); a model the
-    # port cannot run is refused before any parameter is materialized
-    deepseek = get_config("deepseek-v2-236b").reduced()
-    assert TM.model_specs(deepseek)["slots"]["slot0"]["mixer"]["wq_down"]
-    with pytest.raises(NotImplementedError):
-        TM.init_params(deepseek, 0, "cpu")
+    # port cannot run (multi-codebook, image prefix, the Mamba slot) is
+    # refused before any parameter is materialized
+    for arch, leaf in (("musicgen-large", "wq"), ("llava-next-34b", "wq"),
+                       ("mamba2-780m", "w_xbc")):
+        cfg = get_config(arch).reduced()
+        assert leaf in TM.model_specs(cfg)["slots"]["slot0"]["mixer"]
+        with pytest.raises(NotImplementedError):
+            TM.init_params(cfg, 0, "cpu")
     with pytest.raises(ValueError):
         tattn.attention(None, None, None, None, None, scale=1.0, impl="pallas")
+    # MLA's q/k and v head dims differ: no kernel path, and no fallback
+    mla = get_config("minicpm3-4b").reduced()
+    mix = tcommon.materialize(tattn.mla_specs(mla, 1), 0, "cpu")
+    layer = tcommon.tree_map(lambda a: a[0], mix)
+    with pytest.raises(ValueError, match="head dim"):
+        tattn.mla_forward(layer, torch.zeros(1, 4, mla.d_model),
+                          torch.arange(4)[None], mla, "mla", impl="kernel")
+    cache = {"ckv": torch.zeros(1, 8, mla.kv_lora_rank),
+             "k_rope": torch.zeros(1, 8, mla.qk_rope_head_dim)}
+    with pytest.raises(ValueError, match="head dim"):
+        tattn.mla_decode(layer, torch.zeros(1, 1, mla.d_model),
+                         torch.tensor([3]), cache, mla, "mla", impl="kernel")
     swa = tcfg.replace(attn_window_override=8)
     cache = {"k": torch.zeros(1, 8, 2, 64), "v": torch.zeros(1, 8, 2, 64)}
     mix = tcommon.materialize(tattn.gqa_specs(swa, 1), 0, "cpu")

@@ -272,6 +272,64 @@ def test_pipeline_matches_single_stage_trainer(pipe, strategy, compression,
             assert err <= TOL + TOL * w.abs().max().item(), (path, err)
 
 
+def _moe_cfg():
+    """deepseek-v2's reduced config (MLA + MoE with a shared expert, one
+    dense prelude layer) deepened to two cycles a stage at pipe 2, fp32,
+    as Session deepens it."""
+    cfg = get_config("deepseek-v2-236b").reduced().replace(
+        vocab_size=256, dtype="float32")
+    return cfg.replace(num_layers=cfg.first_k_dense + 4 * len(cfg.pattern))
+
+
+def test_moe_prelude_pipeline_carries_aux_bitwise():
+    """pipe 2 on an MoE + prelude model (2 shards a stage, so bitwise):
+    stage 0 runs the prelude, the carry is (h, aux), and the params after
+    2 steps and every step's loss are the single-stage trainer's exactly.
+    The aux is carried: it is non-zero in the loss, and the last stage's
+    loss is ce + 0.01 x the sum over all four MoE layers."""
+    cfg, pipe, dp = _moe_cfg(), 2, 2
+    assert cfg.first_k_dense and TM.main_cycles(cfg) == 4
+    p0 = TM.init_params(cfg, 0, "cpu")
+    single = DataParallelTrainer(
+        cfg, RunConfig(attn_impl="dense", remat="block",
+                       microbatch=BATCH // dp // MICRO), _opt(),
+        devices=["cpu"] * dp, group_timeout=TIMEOUT)
+    tr = PipelineTrainer(cfg, RunConfig(attn_impl="dense", remat="block"),
+                         _opt(), pipe=pipe, n_microbatch=MICRO,
+                         devices=["cpu"] * (pipe * dp), group_timeout=TIMEOUT)
+    try:
+        assert set(_stage_params(p0, cfg, tr.stage_cut, 0)) == {
+            "slots", "embed", "prelude"}
+        params, states = single.replicate(tree_map(torch.clone, p0))
+        got, state = tree_map(torch.clone, p0), None
+        state = init_state(_opt(), got)
+        s_step, p_step = single.step_fn(), tr.step_fn()
+        for b in _batches(cfg):
+            shards = {k: list(torch.chunk(v, dp)) for k, v in b.items()}
+            params, states, ms = s_step(params, states, shards)
+            got, state, mp = p_step(got, state, b)
+            assert mp["loss"] == pytest.approx(float(ms["loss"]), abs=0,
+                                               rel=1e-6)
+        # the first microbatch of shard 0 through both stages by hand:
+        # the carried aux is the whole stack's
+        mb = {k: v[:BATCH // dp // MICRO] for k, v in
+              next(_batches(cfg)).items()}
+        loss, m = TM.loss_fn(p0, mb, cfg, RunConfig(attn_impl="dense"))
+        with torch.no_grad():
+            sp = [_stage_params(p0, cfg, tr.stage_cut, s) for s in (0, 1)]
+            h, aux = tr._stage_forward(0, sp[0], mb["tokens"])
+            assert torch.is_tensor(aux) and float(aux) > 0
+            ploss = tr._stage_forward(1, sp[1], (h, aux), mb["labels"])
+        assert float(m["aux"]) > 0 and torch.equal(ploss, loss)
+    finally:
+        single.close()
+        tr.close()
+    want, got = dict(tree_items(params[0])), dict(tree_items(got))
+    assert list(got) == list(want)
+    for path, w in want.items():
+        assert torch.equal(got[path], w), path_str(path)
+
+
 def test_gloo_sum_order_depends_on_the_slice():
     """Why pipe 2 (4 ranks a stage) is held at 2e-4: over 4 gloo ranks the
     sum of a slice is not bitwise the slice of the sum."""

@@ -59,8 +59,10 @@ TIMEOUT = timedelta(seconds=60)
 JOIN_S = 120
 # the TPU clusters both packages price identically
 SHARED_TOPOLOGIES = ("2x4", "4x4-ib", "flat8", "p2-2x8")
+# MLA, MoE and the dense prelude: ported, so trained and served below
+MOE_MLA = ("minicpm3-4b", "deepseek-v2-236b", "arctic-480b")
 UNPORTED = tuple(a for a in ARCH_IDS
-                 if a not in ("granite-3-2b", "qwen2-72b"))
+                 if a not in ("granite-3-2b", "qwen2-72b") + MOE_MLA)
 
 
 def _load(name):
@@ -528,6 +530,27 @@ def test_launcher_plan_runs_in_process(capsys):
     assert "sync resolved from planner: reduce_scatter_all_gather" in out
     assert any(line.startswith("sync report:") for line in out)
     assert json.loads(out[-1])["kind"] == "train"
+
+
+@pytest.mark.parametrize("arch", MOE_MLA)
+def test_moe_mla_archs_train_and_serve_through_both_validators(arch):
+    """minicpm3-4b, deepseek-v2-236b and arctic-480b (once refused here)
+    train and serve at reduced size on the CPU: both serve modes, the MoE
+    aux in the loss, and every report through both packages'
+    validate_report."""
+    rep = Session(JobSpec(arch=arch, **_TRAIN), device="cpu").train()
+    d = json.loads(rep.to_json())
+    assert validate_report(d) == d
+    jax_validate_report(d)
+    assert all(np.isfinite(d["measured"]["losses"]))
+    for mode in ("continuous", "static"):
+        rep = Session(JobSpec(arch=arch, serve_mode=mode, **_SERVE),
+                      device="cpu").serve()
+        d = json.loads(rep.to_json())
+        assert validate_report(d) == d
+        jax_validate_report(d)
+        assert d["measured"]["n_tokens"] == sum(
+            r["tokens"] for r in d["measured"]["per_request"])
 
 
 @pytest.mark.parametrize("arch", UNPORTED)
