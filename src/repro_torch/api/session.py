@@ -48,6 +48,10 @@ adopt its attention and microbatch; a session built with
 ``calibration=`` prices every plan and prediction on measured constants.
 Under ``torchrun`` every rank measures and adopts rank 0's choices.
 
+``Session.sweep`` runs one of those six kinds per cell of a grid over
+``JobSpec`` fields and collects the reports into a ``Campaign``
+(``api/campaign.py``) with a throughput-vs-efficiency Pareto summary.
+
 Every method returns a validated :class:`Report` whose ``measured`` dict
 has the JAX package's keys (``pipeline`` for a pipelined run).  Options
 whose modules are not ported (``pipe > 1`` under ``torchrun``: one
@@ -57,16 +61,19 @@ nothing falls back.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import itertools
 import math
 import time
 from functools import partial
 from pathlib import Path
-from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.api.campaign import Campaign
 from repro_torch.api.report import SERVING_SCHEMA_ID, Report
 from repro_torch.api.spec import JobSpec
 from repro_torch.configs.base import ModelConfig, get_config, get_shape
@@ -76,7 +83,7 @@ from repro_torch.core.pipeline import pipeline_bubble
 from repro_torch.core.planner import (Plan, estimate_step_time,
                                       plan as plan_fn, r_o_from_terms)
 from repro_torch.models.blocks import RunConfig
-from repro_torch.models.common import resolve_device
+from repro_torch.models.common import DeviceCountError, resolve_device
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.obs.trace import monotonic
 from repro_torch.optim.adamw import OptConfig
@@ -99,6 +106,14 @@ def serve_attn_impl(cfg: ModelConfig) -> str:
     form, which no kernel carries)."""
     mla = any(s.mixer.startswith("mla") for s in cfg.pattern)
     return "dense" if mla else "kernel"
+
+
+# What a sweep cell may raise and still be recorded as skipped: a spec that
+# does not validate or a wrapper that refuses its inputs, more ranks than
+# visible cards, running out of device memory, an option not ported.  All
+# else propagates, a KernelError or any other CUDA error among it.
+INFEASIBLE = (ValueError, DeviceCountError, torch.cuda.OutOfMemoryError,
+              NotImplementedError)
 
 
 class Session:
@@ -349,7 +364,7 @@ class Session:
         dev = self.device
         if dev.type == "cuda":
             if env.local_rank >= torch.cuda.device_count():
-                raise RuntimeError(
+                raise DeviceCountError(
                     f"LOCAL_RANK {env.local_rank} but only "
                     f"{torch.cuda.device_count()} cards visible")
             dev = torch.device("cuda", env.local_rank)
@@ -694,6 +709,74 @@ class Session:
         }
         return self._report("serve", measured, self._predicted(),
                             meta_extra=self._save_trace("serve", tracer))
+
+    # ------------------------------------------------------------------
+    # Campaigns: the paper's guidelines as one queryable sweep
+    # ------------------------------------------------------------------
+    SWEEP_KINDS = ("plan", "dryrun", "train", "bench", "serve", "tune")
+
+    @classmethod
+    def sweep(cls, base: JobSpec, grid: Dict[str, Sequence[Any]], *,
+              kind: str = "plan", progress: bool = False,
+              calibration: Optional["Calibration"] = None,
+              device="cuda") -> Campaign:
+        """Fan the cartesian product of ``grid`` out over ``base`` and run
+        one Session method per cell on ``device``.
+
+        ``grid`` maps JobSpec field names to the values to sweep; each cell
+        is ``base.replace(**overrides)``, the keys taken in sorted order.
+        ``kind`` picks what runs per cell: ``plan``/``dryrun`` stay
+        predictive, ``train``/``bench``/``serve``/``tune`` execute.
+        ``calibration`` (e.g. ``Session(spec).tuned.calibration``)
+        re-prices every cell on measured constants.
+
+        An infeasible cell (``INFEASIBLE``) lands in ``Campaign.skipped``
+        with its error and the campaign goes on: a spec that does not
+        validate, ``dp`` ranks beyond the visible cards, a cell that runs
+        out of device memory, an option that is not ported.  Any other
+        exception propagates: a kernel that fails to build or launch
+        (``KernelError``), any other CUDA error, a bug of the port.  On a card each finished cell's session is dropped
+        and collected before the next one starts, so its weights and
+        optimizer state are not held while the next cell allocates.
+
+        Predictive kinds only differentiate plan-affecting fields
+        (``arch``/``shape``/``mesh``/``topology``/``sync_overlap``): sweep
+        execution knobs (batch/compress/dp/sync) with ``kind="train"``.
+        """
+        if kind not in cls.SWEEP_KINDS:
+            raise ValueError(f"sweep kind must be one of {cls.SWEEP_KINDS}, "
+                             f"got {kind!r}")
+        if not grid:
+            raise ValueError("sweep needs a non-empty grid")
+        dev = resolve_device(device)  # no card: raise here, not per cell
+        keys = sorted(grid)
+        values = [list(grid[k]) for k in keys]
+        reports: List[Report] = []
+        cells: List[Dict[str, Any]] = []
+        skipped: List[Dict[str, Any]] = []
+        for combo in itertools.product(*values):
+            overrides = dict(zip(keys, combo))
+            try:
+                spec = base.replace(**overrides)
+                rep = getattr(cls(spec, calibration=calibration,
+                                  device=dev), kind)()
+            except INFEASIBLE as e:  # record, keep sweeping
+                skipped.append({"cell": overrides,
+                                "error": f"{type(e).__name__}: {e}"})
+                if progress:
+                    print(f"sweep[{kind}] {overrides} SKIPPED: {e}")
+                continue
+            finally:
+                if dev.type == "cuda":
+                    gc.collect()
+                    torch.cuda.empty_cache()
+            reports.append(rep)
+            cells.append(overrides)
+            if progress:
+                print(f"sweep[{kind}] {overrides} ok")
+        return Campaign(kind=kind, grid={k: list(grid[k]) for k in keys},
+                        cells=cells, reports=reports,
+                        skipped=skipped).validate()
 
     # ------------------------------------------------------------------
     # Shared prediction / report assembly

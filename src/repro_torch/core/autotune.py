@@ -63,6 +63,17 @@ TUNING_SCHEMA_ID = "repro.api/tuning/v1"
 DEFAULT_CACHE_PATH = "results/calibration_cache.json"
 CACHE_SCHEMA_ID = "repro.core/autotune-cache/v1"
 
+# The calibration's triad array size [MiB] on a card.  At the JAX
+# package's 32 MiB an array each pass of an H100 triad still pays a ramp
+# that reads 0.78-0.86x the 256 MiB rate, and Calibration.apply makes the
+# triad the chip's hbm_bw; on the CPU the calibration keeps JAX's 32 MiB.
+CARD_TRIAD_MB = 256
+
+
+def triad_mb(device) -> int:
+    """The triad's array size [MiB] the calibration times on ``device``."""
+    return CARD_TRIAD_MB if torch.device(device).type == "cuda" else 32
+
 
 def _sync(args) -> None:
     devs = {a.device for a in args if isinstance(a, torch.Tensor)
@@ -432,7 +443,10 @@ def fit_calibration(cfg: ModelConfig, *, batch: int, seq: int,
         measured={"best_compute_s": float(t_comp or 0.0),
                   "best_step_s": float(measured.get("best_step_s") or 0.0),
                   "flops_per_step": float(flops_step),
-                  "batch": float(batch), "seq": float(seq), "dp": float(dp)},
+                  "batch": float(batch), "seq": float(seq), "dp": float(dp),
+                  # the triad's array size, where the microbenchmark names it
+                  **({"copy_mb": float(micro["copy_mb"])}
+                     if "copy_mb" in micro else {})},
         created=time.strftime("%Y-%m-%dT%H:%M:%S"),
     )
 
@@ -453,9 +467,21 @@ def load_cache(path) -> Dict[str, Dict[str, Any]]:
     return dict(d.get("calibrations", {}))
 
 
-def cached_calibration(path, key: str) -> Optional[Calibration]:
+def cached_calibration(path, key: str, *,
+                       copy_mb: Optional[float] = None
+                       ) -> Optional[Calibration]:
+    """The entry cached under ``key``.  Given ``copy_mb``, an entry whose
+    triad was timed at another array size is a miss (one that names no
+    size was timed at the JAX package's 32 MiB), so a card's calibration
+    from before the 256 MiB triad is measured anew."""
     entry = load_cache(path).get(key)
-    return Calibration.from_dict(entry) if entry else None
+    if not entry:
+        return None
+    cal = Calibration.from_dict(entry)
+    if copy_mb is not None and \
+            float(cal.measured.get("copy_mb", 32.0)) != float(copy_mb):
+        return None
+    return cal
 
 
 def save_calibration(path, cal: Calibration) -> Path:
@@ -626,7 +652,7 @@ def autotune(cfg_exec: ModelConfig, cfg_full: ModelConfig,
             metrics.observe(f"tune/kernel/{op}/{name}_s", t)
 
     # 2) calibration: cached (rank 0's cache), or measured fresh
-    cal = (cached_calibration(cache_path, key)
+    cal = (cached_calibration(cache_path, key, copy_mb=triad_mb(dev))
            if cache_path and use_cache and not rank else None)
     cal = _from_rank0(shared, rank, "cached",
                       cal.to_dict() if cal is not None else None)
@@ -647,7 +673,7 @@ def autotune(cfg_exec: ModelConfig, cfg_full: ModelConfig,
             measured = measure_train_steps(cfg_exec, batch=batch, seq=seq,
                                            steps=steps, dp=dp, seed=seed,
                                            topology=mesh.topology, **place)
-            micro = host_microbench(device=dev)
+            micro = host_microbench(device=dev, copy_mb=triad_mb(dev))
         metrics.observe("tune/measure_s", sp_m.elapsed_s)
         cal = fit_calibration(cfg_exec, batch=batch, seq=seq,
                               measured=measured, micro=micro,

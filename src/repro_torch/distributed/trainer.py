@@ -80,8 +80,9 @@ from repro_torch.distributed.overlap import (DEFAULT_BUCKET_MB, BucketPlan,
 from repro_torch.launch.steps import build_grad_fn
 from repro_torch.models import model as M
 from repro_torch.models.blocks import RunConfig
-from repro_torch.models.common import (param_count, resolve_device,
-                                       tree_items, tree_map, tree_unflatten)
+from repro_torch.models.common import (DeviceCountError, param_count,
+                                       resolve_device, tree_items, tree_map,
+                                       tree_unflatten)
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.optim import adamw as opt_lib
 from repro_torch.train import loop as loop_lib
@@ -102,7 +103,7 @@ def rank_devices(device, dp: int) -> List[torch.device]:
         return [dev] * dp
     n = torch.cuda.device_count()
     if n < dp:
-        raise RuntimeError(f"dp={dp} but only {n} devices visible")
+        raise DeviceCountError(f"dp={dp} but only {n} devices visible")
     return [torch.device("cuda", i) for i in range(dp)]
 
 

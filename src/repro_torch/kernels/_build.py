@@ -12,6 +12,7 @@ the sources and flags, so an edited kernel is rebuilt and an unchanged one
 is reused.  Builds happen at first use (or all at once, in parallel, via
 :func:`build`), never at import.  The ``ptxas`` report (registers, shared
 memory, spills) of each build is kept beside it as ``<name>-<hash>.log``.
+A failed build raises :class:`KernelError`.
 """
 from __future__ import annotations
 
@@ -32,6 +33,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel that cannot be built, launched or called as it stands: a
+    fault of the port, which callers that record infeasible work (such as
+    ``Session.sweep``) let propagate."""
+
+
 def nvcc() -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     path = Path(home) / "bin" / "nvcc"
@@ -39,7 +46,7 @@ def nvcc() -> str:
         return str(path)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError(
+        raise KernelError(
             f"nvcc not found under {home}/bin or on PATH: the CUDA kernels "
             "are built on the machine with the card")
     return found
@@ -78,7 +85,7 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        raise KernelError("kernel build failed: " + "\n".join(failed))
     return {name: _lib_path(name).with_suffix(".log").read_text()
             for name in names}
 

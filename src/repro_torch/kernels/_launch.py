@@ -6,6 +6,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.kernels._build import KernelError
+
 HEAD_DIMS = (64, 128)
 
 
@@ -38,7 +40,7 @@ def refuse_autograd(op: str, tensors: Sequence[torch.Tensor], use: str) -> None:
     Checked on every device, so the CPU (plain-version) path refuses what
     the card would."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
+        raise KernelError(
             f"{op}: the kernel has no backward (the JAX package's Pallas "
             f"kernels have none either); {use}, or call it under "
             "torch.no_grad() / torch.inference_mode()")
@@ -58,4 +60,4 @@ def stream(t: torch.Tensor) -> ctypes.c_void_p:
 
 def raise_on_error(op: str, err: int) -> None:
     if err != 0:
-        raise RuntimeError(f"{op}: CUDA kernel launch failed with error {err}")
+        raise KernelError(f"{op}: CUDA kernel launch failed with error {err}")

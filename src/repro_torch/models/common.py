@@ -24,6 +24,10 @@ def torch_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+class DeviceCountError(RuntimeError):
+    """A job that asks for more ranks' devices than are visible."""
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on.  ``cuda`` without a card raises:
     nothing in the port moves to the CPU unless the caller asked for it."""
@@ -132,6 +136,20 @@ def param_count(specs) -> int:
 # ---------------------------------------------------------------------------
 # Numerics
 # ---------------------------------------------------------------------------
+
+
+def smooth_attention(params, cfg):
+    """Rescale slot 0's attention projections in place so each has std
+    1/sqrt(fan-in of the whole product); returns ``params``.  The JAX
+    package's init takes fan-in = heads for the (D, H, hd) projections,
+    which makes the scores' std ~100 and the softmax nearly one-hot."""
+    D, H, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    mix = params["slots"]["slot0"]["mixer"]
+    mix["wq"].mul_((H / D) ** 0.5)
+    mix["wk"].mul_((KV / D) ** 0.5)
+    mix["wv"].mul_((KV / D) ** 0.5)
+    mix["wo"].mul_(H ** -0.5)
+    return params
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -404,6 +404,8 @@ def test_session_tune_on_card(cuda, tmp_path):
     for entry in t["kernels"].values():
         assert not {n for n in entry["errors"] if n.startswith("kernel")}
     assert t["replan"]["calibrated_closer"]
+    # C7: on a card the calibration times the triad at 256 MiB an array
+    assert t["calibration"]["measured"]["copy_mb"] == 256.0
     key = Calibration.from_dict(t["calibration"]).key
     assert key.startswith("torch-cuda/h100-8/")
     assert cached_calibration(cache, key) is not None
@@ -414,11 +416,59 @@ def test_session_tune_on_card(cuda, tmp_path):
 
 
 @pytest.mark.gpu
+def test_session_sweep_on_card(cuda, monkeypatch):
+    """Session.sweep on the card: plan cells priced on the H100 clusters,
+    reduced train cells that launch no kernel and leave the allocator as
+    they found it, serve cells on B1 and B2, and a kernel fault raised
+    from a cell rather than recorded as skipped."""
+    import gc
+
+    from repro_torch.api import JobSpec, Session
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels._build import KernelError
+
+    base = JobSpec(arch="granite-3-2b", steps=2, batch=4, seq=32,
+                   log_every=0)
+    plan = Session.sweep(base, {"topology": ["h100-8", "h100-2x8"]},
+                         kind="plan")
+    assert len(plan) == 2 and not plan.skipped and plan.summary()["pareto"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    fa_k.flash_attention.launches = dec_k.decode_attention.launches = 0
+    train = Session.sweep(base, {"batch": [2, 4], "dp": [0, 2]},
+                          kind="train")
+    ran = {(c["batch"], c["dp"]) for c in train.cells}
+    assert ran == ({(2, 0), (4, 0), (2, 2), (4, 2)}
+                   if torch.cuda.device_count() >= 2 else {(2, 0), (4, 0)})
+    if torch.cuda.device_count() < 2:
+        assert [s["error"].split(":")[0] for s in train.skipped] == \
+            ["DeviceCountError", "DeviceCountError"]
+    assert fa_k.flash_attention.launches == 0
+    assert abs(torch.cuda.memory_allocated() - before) < 2**30
+    serve = Session.sweep(JobSpec(arch="granite-3-2b", requests=3, n_new=4,
+                                  s_max=64), {"max_batch": [1, 2]},
+                          kind="serve")
+    assert len(serve) == 2 and fa_k.flash_attention.launches > 0
+    assert dec_k.decode_attention.launches > 0
+
+    def broken(*a, **k):
+        raise KernelError("flash_attention: CUDA kernel launch failed with "
+                          "error 700")
+
+    monkeypatch.setattr(fa_k, "flash_attention", broken)
+    with pytest.raises(KernelError):
+        Session.sweep(JobSpec(arch="granite-3-2b", requests=2, n_new=2,
+                              s_max=64), {"max_batch": [1]}, kind="serve")
+
+
+@pytest.mark.gpu
 def test_triad_reads_the_card_bandwidth(cuda):
     """host_microbench's triad is fused passes (two reads, one write an
     element), several to a timed call, so on an H100 (3.35 TB/s on the
-    data sheet) it reads above 2e12 B/s both at the calibration's 32 MiB
-    an array and at 256 MiB: the eager two-kernel form (five array passes
+    data sheet) it reads above 2e12 B/s both at JAX's 32 MiB an array and
+    at 256 MiB (the calibration's on a card): the eager two-kernel form (five array passes
     counted as three) read 1.30-1.40e12, and one fused pass a call
     1.70-2.16e12 at 32 MiB, where the fixed cost of a call (launch and
     synchronize) is about one pass's time."""

@@ -348,6 +348,44 @@ def test_second_session_reads_the_cache(tmp_path):
     assert "from_cache" not in res.measured
 
 
+def test_calibration_timed_at_another_triad_size_is_measured_anew(tmp_path):
+    """A card's calibration cached before the 256 MiB triad names no
+    ``copy_mb`` (it was timed at 32 MiB) and is not reused on a card; on
+    the CPU, where the triad stays at 32 MiB, such an entry is."""
+    path = tmp_path / "cal.json"
+    old, _ = _cals()  # a torch-cuda entry without copy_mb
+    assert "copy_mb" not in old.measured
+    ttune.save_calibration(path, old)
+    card_mb = ttune.triad_mb("cuda")
+    assert card_mb == ttune.CARD_TRIAD_MB == 256
+    assert ttune.triad_mb("cpu") == 32
+    assert ttune.cached_calibration(path, old.key, copy_mb=card_mb) is None
+    assert ttune.cached_calibration(path, old.key, copy_mb=32) == old
+    assert ttune.cached_calibration(path, old.key) == old
+    new, _ = _cals(measured=dict(CAL_FIELDS["measured"], copy_mb=256.0))
+    ttune.save_calibration(path, new)
+    assert ttune.cached_calibration(path, new.key, copy_mb=card_mb) == new
+    # autotune looks entries up at its device's size: a CPU entry timed at
+    # 256 MiB is measured anew, at 32 MiB, and replaces the stale one
+    tmesh, _ = _meshes("h100-8")
+    cfg = _small_cfg()
+    stale = dataclasses.replace(new, backend="torch-cpu",
+                                arch=ttune.cfg_cache_key(cfg))
+    ttune.save_calibration(path, stale)
+    assert ttune.cached_calibration(path, stale.key) == stale
+
+    def tune():
+        return ttune.autotune(cfg, get_config("granite-3-2b"),
+                              get_shape("train_4k"), tmesh, batch=2, seq=16,
+                              steps=2, cache_path=str(path), repeats=1,
+                              bench_seq=32, device="cpu")
+
+    assert "from_cache" not in tune().measured
+    assert ttune.cached_calibration(path, stale.key).measured["copy_mb"] \
+        == 32.0
+    assert tune().measured["from_cache"]
+
+
 def _small_cfg():
     """tests/test_torch_distributed.py's small trainer config, in fp32."""
     return get_config("granite-3-2b").reduced().replace(
