@@ -212,6 +212,32 @@ Phases, each fatal on failure (exit code != 0, no result line):
    triad check also holds phase 12's calibrated hbm_bw (timed at 256 MiB
    an array on a card) within 5% of the 256 MiB reading, the best of four
    0.5 s apart (C7).
+16. the Mamba slot — (1) Session.serve() of full-width mamba2-780m (48
+   layers, random weights from seed 0), continuous: 8 requests, n_new 32,
+   s_max 512, max_batch 4; the counters zeroed just before and read just
+   after: ssd_scan launches = prefills x 48 and no other kernel; every
+   request returns its tokens, no logits row holds a NaN or inf, the
+   report passes validate_report; tokens/s, t_prefill and t_step; (2) the
+   same in static mode, whose batches' longest prompts (42 and 39) no
+   kernel chunk divides (ops.ssd_scan pads them to a multiple of 4):
+   ssd_scan launches = batches x 48; (3) the served prefill (41 tokens)
+   on B4 in bf16 against impl="auto" in fp32 on the same bf16-rounded
+   weights: logits and final states within phase 6's SSD tolerance at one
+   layer, the distance at 48 layers printed; then B4 at the continuous
+   workload's buckets (L 16, 64) at mamba2-780m's width with its plain
+   version, with the serve run's launches; (4) Session.serve() of
+   jamba-1.5-large at full widths, its first two slots (attention/dense,
+   Mamba/MoE with 16 experts: ~11.9e9 params), continuous, 4 requests,
+   cold then warm: flash launches = prefills, decode launches = engine
+   steps, ssd_scan launches = prefills; jamba's B1 (S 16, 64; H 64, KV 8,
+   D 128), B2 (B 4, s_max 512) and B4 (L 16, 64; H 256) held to their
+   plain versions and listed in the kernels line with those launches;
+   (5) Session.train() of full-width mamba2-780m, batch 4 x seq 512, 4
+   steps (every loss finite, no kernel launched, peak memory), and one
+   2-layer fp32 step on the card against the CPU's (C5's bound); (6) the
+   PipelineTrainer at pipe 2 on reduced jamba deepened to 4 cycles, both
+   stages on this card, bitwise the single-stage trainer.  It prints the
+   phase's wall time.
 
 Then it prints the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line, and, last, the
@@ -1731,7 +1757,7 @@ class first_tokens:
         self.cls.run = self.orig
 
 
-def serve_full_width(torch, wrappers, arch, cfg, label, card):
+def serve_full_width(torch, wrappers, arch, cfg, label, card, tag="moe"):
     """Session.serve() (continuous) of ``cfg`` at full width, twice on one
     session (cold: the first use of every kernel in the process; then
     warm), each with the kernels' counters zeroed just before and read
@@ -1766,7 +1792,7 @@ def serve_full_width(torch, wrappers, arch, cfg, label, card):
         ttft = sorted(ft.ttft)
         prefills = hists["serve/prefill_s"]["count"]
         steps = m["serving"]["throughput"]["engine_steps"]
-        print(f"[moe] {label} ({rep.meta['executed_config']['n_params']:,} "
+        print(f"[{tag}] {label} ({rep.meta['executed_config']['n_params']:,} "
               f"params), Session.serve() continuous, {run}: 4 requests "
               f"(prompts {m['prompt_lengths']}), n_new up to 16: "
               f"{m['n_tokens']} tokens in {m['wall_s']:.3f} s = "
@@ -2142,6 +2168,281 @@ def moe_mla_phase(torch, mods, wrappers) -> list:
     print(f"[moe] the three arctic-shape kernel cases above: {card}; phase "
           f"wall {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
+
+
+MAMBA_LAYERS = 48  # mamba2-780m
+
+
+def mamba_phase(torch, mods, wrappers) -> list:
+    """Phase 16: the Mamba slot (see the module docstring).  Returns the
+    B4 cases at mamba2-780m's serving shapes and jamba's B1, B2 and B4
+    cases, each with the launches of its serve run."""
+    from repro_torch.api import JobSpec, Session, validate_report
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.pipeline import PipelineTrainer
+    from repro_torch.distributed.trainer import DataParallelTrainer
+    from repro_torch.launch.steps import build_grad_fn
+    from repro_torch.models import model as M
+    from repro_torch.models.blocks import RunConfig
+    from repro_torch.models.common import materialize, tree_items, tree_map
+    from repro_torch.optim.adamw import OptConfig, apply_updates, init_state
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    mamba = get_config("mamba2-780m")
+    L = MAMBA_LAYERS
+
+    def zero():
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {n: fn.launches for n, fn in wrappers.items()}
+
+    # 16.1 and 16.2: full-width mamba2-780m through Session.serve(), both
+    # modes, the counters zeroed just before and read just after each run
+    serve_runs = {}
+    for mode in ("continuous", "static"):
+        spec = JobSpec(arch="mamba2-780m", reduced=False, requests=8,
+                       n_new=32, s_max=512, max_batch=4, serve_mode=mode)
+        session = Session(spec, device="cuda")
+        work = session._serve_workload()
+        want = [n_new for _, _, n_new in work]
+        longest = [max(n for _, n, _ in work[i:i + spec.max_batch])
+                   for i in range(0, len(work), spec.max_batch)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        rep = session.serve()
+        launches = counts()
+        validate_report(rep.to_dict())
+        m = rep.measured
+        hists, counters = m["metrics"]["histograms"], m["metrics"]["counters"]
+        got = [r["tokens"] for r in m["per_request"]]
+        if got != want:
+            fail(f"mamba2 {mode}: tokens per request {got} != n_new {want}")
+        if counters["serve/nonfinite_logit_rows"]:
+            fail(f"mamba2 {mode}: {counters['serve/nonfinite_logit_rows']} "
+                 "logits rows hold NaN or inf")
+        prefills = (hists["serve/prefill_s"]["count"] if mode == "continuous"
+                    else len(m["batches"]))
+        if launches["ssd_scan"] != prefills * L or any(
+                c for n, c in launches.items() if n != "ssd_scan"):
+            fail(f"mamba2 {mode}: launches {launches}, want ssd_scan "
+                 f"{prefills} prefills x {L} and nothing else")
+        if mode == "static" and all(n % 4 == 0 for n in longest):
+            fail(f"mamba2 static: no batch's longest prompt ({longest}) "
+                 "leaves a remainder mod 4")
+        meas = m["serving"]["replica_lemma"]["measured"]
+        # one engine step: the continuous scheduler observes each step in
+        # serve/decode_s, the static engine each batch's whole decode there
+        # and its mean step in serve/decode_token_s
+        t_step = hists["serve/decode_s" if mode == "continuous"
+                       else "serve/decode_token_s"]["mean"]
+        print(f"[mamba] mamba2-780m full width ({L} layers, "
+              f"{rep.meta['executed_config']['n_params']:,} params), "
+              f"Session.serve() {mode}: 8 requests (prompts "
+              f"{m['prompt_lengths']}; longest a batch {longest}), n_new up "
+              f"to 32, s_max 512, max_batch 4: {m['n_tokens']} tokens in "
+              f"{m['wall_s']:.3f} s = {m['tokens_per_s']:.1f} tok/s; "
+              f"t_prefill {meas['t_prefill_s'] * 1e3:.2f} ms (mean of "
+              f"{hists['serve/prefill_s']['count']}), t_step "
+              f"{t_step * 1e3:.2f} ms (mean over "
+              f"{m['serving']['throughput']['engine_steps']} engine steps); "
+              f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+              f"(max_memory_allocated); launches "
+              f"{ {n: c for n, c in launches.items() if c} } = {prefills} "
+              f"prefills x {L} ({card})", flush=True)
+        serve_runs[mode] = launches["ssd_scan"]
+        del rep, session
+    torch.cuda.empty_cache()
+
+    # 16.3: the served prefill (B4, bf16) against the plain path (impl
+    # "auto" in fp32 on the same bf16-rounded weights and prompt), at
+    # phase 6's tolerance; it holds at one layer (phase 6's depth), and
+    # the 48-layer distance is printed for information.  41 tokens: a
+    # length the kernels' chunks do not divide, padded by ops.ssd_scan
+    toks = torch.randint(0, mamba.vocab_size, (1, 41), device="cuda",
+                         dtype=torch.int32,
+                         generator=torch.Generator(device="cuda").manual_seed(
+                             16))
+    for depth in (1, L):
+        cfg = mamba.replace(num_layers=depth)
+        pb = M.cast_params(M.init_params(cfg, 0, "cuda"), cfg)
+        p32 = tree_map(lambda a: a.float(), pb)
+        with torch.no_grad():
+            zero()
+            got, gc, _ = M.forward(pb, {"tokens": toks}, cfg,
+                                   RunConfig(attn_impl="kernel"),
+                                   with_cache=True)
+            n_scan = counts()["ssd_scan"]
+            want, wc, _ = M.forward(p32, {"tokens": toks},
+                                    cfg.replace(dtype="float32"),
+                                    RunConfig(attn_impl="auto"),
+                                    with_cache=True)
+        V = cfg.vocab_size
+        ok, err = within(got[..., :V], want[..., :V], SSD_RTOL, SSD_ATOL)
+        ok_h, err_h = within(gc["slots"]["slot0"]["state"],
+                             wc["slots"]["slot0"]["state"], SSD_RTOL,
+                             SSD_ATOL)
+        finite = bool(torch.isfinite(got[..., :V]).all())
+        print(f"[mamba] mamba2-780m served prefill, {depth} layer(s), 41 "
+              f"tokens: B4 in bf16 ({n_scan} launches) vs impl=\"auto\" in "
+              f"fp32 on the same bf16 weights: logits max |diff| {err:.4f} "
+              f"(max |want| {want[..., :V].abs().max().item():.3f}), final "
+              f"states max |diff| {err_h:.4f} (rtol {SSD_RTOL}, atol "
+              f"{SSD_ATOL}: {'within' if ok and ok_h else 'outside'}); "
+              f"argmax at the last position "
+              f"{int(got[0, -1, :V].argmax())} vs "
+              f"{int(want[0, -1, :V].argmax())}", flush=True)
+        if n_scan != depth or not finite:
+            fail(f"mamba2 prefill at {depth} layers: {n_scan} scan launches "
+                 f"or non-finite logits")
+        if depth == 1 and not (ok and ok_h):
+            fail(f"mamba2 served prefill differs from the plain path by "
+                 f"{err} (logits), {err_h} (state)")
+        del pb, p32, got, gc, want, wc
+        torch.cuda.empty_cache()
+
+    cases = []
+    H, P, N = mamba.ssm_heads, mamba.ssm_head_dim, mamba.ssm_state
+    for S in (16, 64):  # the continuous workload's prompt buckets
+        name = (f"ssd_scan[mamba2-780m serve: B=1,L={S},H={H},P={P},N={N},"
+                f"chunk=256]")
+        cases.append((name, "ssd_scan", {
+            **ssd_case(torch, mods, name, B=1, L=S, H=H, P=P, N=N,
+                       chunk=256),
+            "launches": serve_runs["continuous"]}))
+
+    # 16.4: jamba at full widths, its first two slots (attention/dense,
+    # then Mamba/MoE with all 16 experts): B1, B2 and B4 in one model
+    jamba = get_config("jamba-1.5-large-398b")
+    jcfg = jamba.replace(num_layers=2, pattern=jamba.pattern[:2])
+    runs = serve_full_width(
+        torch, wrappers, "jamba-1.5-large-398b", jcfg,
+        "jamba-1.5-large full widths, 2 layers (attention/dense, then "
+        "Mamba/MoE: 16 experts, top-2)", card, tag="mamba")
+    for launches, prefills, steps in runs:
+        fa_n, dec_n = launches["flash_attention"], launches["decode_attention"]
+        ssd_n = launches["ssd_scan"]
+        if fa_n != prefills or dec_n != steps or ssd_n != prefills \
+                or launches["paged_decode_attention"] or not (fa_n and dec_n):
+            fail(f"jamba serving: launches {launches}, prefills {prefills}, "
+                 f"engine steps {steps}")
+    Hj, KV, D = jamba.num_heads, jamba.num_kv_heads, jamba.head_dim
+    Hs = jamba.ssm_heads
+    for S in (16, 64):  # the workload's prompt buckets
+        r = flash_case(torch, mods, S=S, H=Hj, KV=KV, D=D)
+        cases.append((f"flash_attention[jamba: S={S},H={Hj},KV={KV},D={D}]",
+                      "flash_attention", {**r, "launches": fa_n}))
+    r = decode_case(torch, mods, B=4, S=512, pos=[42, 8, 40, 9], H=Hj, KV=KV,
+                    D=D)
+    cases.append((f"decode_attention[jamba: B=4,S=512,H={Hj},KV={KV},D={D}]",
+                  "decode_attention", {**r, "launches": dec_n}))
+    for S in (16, 64):
+        name = (f"ssd_scan[jamba: B=1,L={S},H={Hs},P={P},N={N},chunk=256]")
+        cases.append((name, "ssd_scan", {
+            **ssd_case(torch, mods, name, B=1, L=S, H=Hs, P=P, N=N,
+                       chunk=256), "launches": ssd_n}))
+    print_cases(cases)
+    print(f"[mamba] the kernel cases above: {card}", flush=True)
+    torch.cuda.empty_cache()
+
+    # 16.5: full-width mamba2-780m through Session.train(), 4 steps, no
+    # kernel; then one 2-layer fp32 step on the card against the CPU's
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    session = Session(JobSpec(arch="mamba2-780m", reduced=False, steps=4,
+                              batch=4, seq=512, log_every=0), device="cuda")
+    rep = session.train()
+    validate_report(rep.to_dict())
+    m = rep.measured
+    hist = m["metrics"]["histograms"]["train/step_s"]
+    print(f"[mamba] mamba2-780m full width ({L} layers, "
+          f"{rep.meta['executed_config']['n_params']:,} params), "
+          f"Session.train() batch 4 x seq 512, 4 steps, the plain "
+          f"ssd_chunked + block remat, AdamW on fp32 masters: losses "
+          f"{[round(v, 4) for v in m['losses']]}; step wall p50 "
+          f"{hist['p50'] * 1e3:.1f} ms (min {hist['min'] * 1e3:.1f}); "
+          f"tokens/s {m['tokens_per_s']:.1f} over the run; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(max_memory_allocated); wall {time.perf_counter() - t0:.1f} s "
+          f"({card})", flush=True)
+    if not all(map(math.isfinite, m["losses"])):
+        fail(f"mamba2 training losses {m['losses']}: not finite")
+    run, _ = session.build_run_opt()
+    del rep, session
+    torch.cuda.empty_cache()
+    cfg = mamba.replace(num_layers=2, dtype="float32")
+    opt = OptConfig(lr=1e-3, warmup_steps=0)
+    p_cpu = materialize(M.model_specs(cfg), 0, "cpu")
+    p_gpu = tree_map(lambda a: a.to("cuda"), p_cpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(16))
+    grads_of = build_grad_fn(cfg, run)
+    out = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        t = toks.to(dev)
+        loss, _, g = grads_of(p, {"tokens": t, "labels": t})
+        _, _, gnorm = apply_updates(opt, p, g, init_state(opt, p))
+        out[dev] = (loss.item(), gnorm.item(), g)
+    ok_g, worst_g = trees_close(tree_items, out["cuda"][2], out["cpu"][2])
+    ok_p, worst_p, n_eps, worst_eps = adam_close(
+        tree_items, p_gpu, p_cpu, out["cpu"][2],
+        scale=min(1.0, opt.grad_clip / out["cpu"][1]), lr=opt.lr)
+    dl = abs(out["cuda"][0] - out["cpu"][0])
+    print(f"[mamba] mamba2-780m 2 layers at full width, one fp32 step, card "
+          f"vs CPU: loss {out['cuda'][0]:.6f} vs {out['cpu'][0]:.6f}, "
+          f"grad_norm {out['cuda'][1]:.6f} vs {out['cpu'][1]:.6f}; grads max "
+          f"|diff| {worst_g:.3e}; updated params max |diff| {worst_p:.3e} "
+          f"(limit 2e-4 + 2e-4 * max |want| a leaf), {worst_eps:.3e} on the "
+          f"{n_eps} elements whose clipped gradient is below 100 * eps "
+          f"(limit 2 * lr + 2e-4)", flush=True)
+    if dl > FP32_TOL + FP32_TOL * abs(out["cpu"][0]) or not (ok_g and ok_p):
+        fail(f"mamba2 card and CPU step differ: loss {dl}, grads {worst_g}, "
+             f"params {worst_p} ({worst_eps} where the gradient is tiny)")
+    del out, p_cpu, p_gpu
+
+    # 16.6: 1F1B on jamba's reduced config deepened to two cycles a stage,
+    # both stages on this card, bitwise the single-stage trainer
+    red = jamba.reduced().replace(num_layers=4 * 2, dtype="float32")
+    opt = OptConfig(lr=1e-3, warmup_steps=0)
+    p0 = M.init_params(red, 0, "cuda")
+    pt = PipelineTrainer(red, RunConfig(attn_impl="auto", remat="block"), opt,
+                         pipe=2, n_microbatch=4, devices=["cuda:0", "cuda:0"])
+    try:
+        res_p = pt.train(batch=8, seq=64, steps=2, log_every=0,
+                         params=tree_map(torch.clone, p0))
+    finally:
+        pt.close()
+    dp = DataParallelTrainer(red, RunConfig(attn_impl="auto", remat="block",
+                                            microbatch=2), opt,
+                             devices=["cuda:0"])
+    try:
+        res_d = dp.train(batch=8, seq=64, steps=2, log_every=0,
+                         params=tree_map(torch.clone, p0))
+    finally:
+        dp.close()
+    same = trees_equal(torch, tree_items, pt.params, dp.params[0])
+    print(f"[mamba] PipelineTrainer (pipe 2, 4 microbatches, both stages on "
+          f"cuda:0; stage cut {pt.stage_cut}) against DataParallelTrainer "
+          f"(dp 1, microbatch 2), jamba reduced with 4 attention + "
+          f"Mamba/MoE cycles, fp32, 2 steps: losses {res_p.losses} vs "
+          f"{res_d.losses}; params bitwise equal: {same}", flush=True)
+    if not same:
+        fail("the 1F1B trainer on jamba is not bitwise the single-stage "
+             "trainer")
+    del pt, dp, p0
+    torch.cuda.empty_cache()
+    moved = {n: c for n, c in counts().items() if c}
+    if moved:
+        fail(f"the Mamba training paths launched kernels: {moved}")
+    print(f"[mamba] no kernel launched on the training paths; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return cases
 
 
 # phase 15.2: a batch whose memory-model estimate at this shape (auto =
@@ -2523,6 +2824,9 @@ def main() -> None:
 
     # 15. campaigns (Session.sweep) ------------------------------------------------
     campaign_phase(torch, wrappers, calibration)
+
+    # 16. the Mamba slot -------------------------------------------------------------
+    cases += mamba_phase(torch, mods, wrappers)
 
     leaked = sorted(n for n in sys.modules
                     if n.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",

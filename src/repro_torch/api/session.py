@@ -35,9 +35,9 @@ from it.  ``bench`` is the same run reported as ``bench``.
 ``BatchScheduler`` or the continuous scheduler over the paged KV cache
 (sized by Eq. 5 on the mesh's chip), with GQA attention on the
 hand-written kernels (``attn_impl="kernel"``: B1 for prefill, B2 for
-decode) and MLA models on ``"dense"`` (:func:`serve_attn_impl`; JAX
-serves every model on ``"dense"``), and reports the replica lemma's
-prediction beside its measurement.
+decode, and a Mamba slot's prefill on B4) and MLA models on ``"dense"``
+(:func:`serve_attn_impl`; JAX serves every model on ``"dense"``), and
+reports the replica lemma's prediction beside its measurement.
 
 ``Session.tune()`` closes the loop on measurements
 (``core/autotune.py``): it times the kernel variants (the four CUDA
@@ -100,7 +100,9 @@ MESH_CLUSTERS = {"single": "h100-8", "multi": "h100-2x8"}
 
 def serve_attn_impl(cfg: ModelConfig) -> str:
     """The attention algorithm ``Session.serve()`` runs ``cfg`` on:
-    ``"kernel"`` where every attention slot is GQA, ``"dense"`` for an MLA
+    ``"kernel"`` where every attention slot is GQA (Mamba slots, mamba2
+    and jamba, included: their prefill scan then runs on B4, their
+    single-token step in plain PyTorch, as JAX's), ``"dense"`` for an MLA
     model, whose q/k and v head dims differ (the flash kernel, like JAX's
     Pallas kernel, takes one head dim; MLA decodes in the absorbed-latent
     form, which no kernel carries)."""
@@ -500,7 +502,8 @@ class Session:
         """Batched generation, measured end to end.  ``spec.serve_mode``
         picks the runtime: ``continuous`` (in-flight batching over the
         paged KV cache) or ``static`` (the FIFO Engine/BatchScheduler).
-        GQA models run attention on the kernels (B1 prefill, B2 decode);
+        GQA models run attention on the kernels (B1 prefill, B2 decode)
+        and Mamba slots their prefill scan on B4;
         an MLA model (minicpm3-4b, deepseek-v2-236b) runs on ``"dense"``,
         as JAX serves every model (:func:`serve_attn_impl`)."""
         if self.spec.serve_mode == "continuous":

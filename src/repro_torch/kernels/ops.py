@@ -10,6 +10,7 @@ The second half is the tuning registry, the autotuner's view of this layer
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
@@ -54,10 +55,24 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, *, scale, window=0,
 
 
 def ssd_scan(x, dt, a_neg, b_mat, c_mat, *, chunk=256):
-    """Model layout x (B,L,H,P), dt (B,L,H) -> y (B,L,H,P), h (B,H,N,P)."""
+    """Model layout x (B,L,H,P), dt (B,L,H) -> y (B,L,H,P), h (B,H,N,P).
+
+    A sequence shorter than ``chunk`` takes any length, as the plain
+    ``ssd_chunked`` does, although the kernels run chunks that are
+    multiples of 4: x, dt, B and C get zero rows up to the next multiple
+    of 4, whose outputs are dropped.  A row with dt = 0 neither decays the
+    state (exp(0 * a) = 1) nor feeds it, so y and the final state are the
+    unpadded scan's.  A longer sequence must be a multiple of ``chunk``,
+    as JAX asserts.  The padding is made on every device, so the CPU runs
+    the code the card does."""
+    L = x.shape[1]
+    pad = -L % 4 if L < chunk else 0
+    if pad:
+        x, dt, b_mat, c_mat = (F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+                               for t in (x, dt, b_mat, c_mat))
     y, h = ssd_k.ssd_scan(x.transpose(1, 2), dt.transpose(1, 2), a_neg, b_mat,
                           c_mat, chunk=chunk)
-    return y.transpose(1, 2), h
+    return y.transpose(1, 2)[:, :L], h
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,17 @@
 """Block (slot) composition: pre-norm mixer + residual, pre-norm MLP +
 residual, optional post-norms — the port of ``repro.models.blocks``.
 
-``slot_specs`` gives the parameter shapes of every slot kind (GQA, MLA,
-Mamba; dense, MoE, and arctic's dense + MoE), so the planner prices the
-full architecture of every arch.  Forward and decode run the slots in
-``PORTED_SLOTS``: GQA or MLA mixers with the dense, MoE or arctic's
-dense + MoE MLP (each slot returns its MoE aux loss).  The others raise
-``NotImplementedError`` until their slice is ported (ROADMAP A11), and
-``models.model.init_params`` refuses them before any parameter exists.
-The Mamba mixer itself is ``models/ssm.py``; its slot comes with Mamba
-serving (Next 8)."""
+``slot_specs`` gives the parameter shapes of every slot kind (GQA, SWA,
+MLA, Mamba; dense, MoE, and arctic's dense + MoE), so the planner prices
+the full architecture of every arch.  Forward and decode run the slots in
+``PORTED_SLOTS``: GQA, MLA or Mamba-2 mixers with the dense, MoE or
+arctic's dense + MoE MLP (each slot returns its MoE aux loss).  A Mamba
+slot runs ``models/ssm.py``: its SSD core on the CUDA scan
+(``impl="kernel"``) exactly when ``run.attn_impl`` is ``"kernel"``, the
+serving path, else on the plain ``ssd_chunked`` (JAX's ``"auto"``).  The
+sliding-window slot (gemma2) raises ``NotImplementedError`` until its
+slice is ported (ROADMAP A13), and ``models.model.init_params`` refuses
+it before any parameter exists."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -22,7 +24,8 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import ParamSpec, rms_norm
 
 PORTED_SLOTS = (("attn", "dense"), ("mla", "dense"), ("mla", "moe"),
-                ("attn", "moe"), ("attn", "moe_dense"))
+                ("attn", "moe"), ("attn", "moe_dense"), ("mamba", "dense"),
+                ("mamba", "moe"))
 REMATS = ("none", "block")
 
 
@@ -50,7 +53,7 @@ def check_slot(slot: SlotSpec) -> None:
     if (slot.mixer, slot.mlp) not in PORTED_SLOTS:
         raise NotImplementedError(
             f"slot ({slot.mixer!r}, {slot.mlp!r}) is not ported yet; the port "
-            f"runs {PORTED_SLOTS} (ROADMAP A11)")
+            f"runs {PORTED_SLOTS} (ROADMAP A13)")
 
 
 # ---------------------------------------------------------------------------
@@ -88,8 +91,16 @@ def slot_specs(cfg: ModelConfig, slot: SlotSpec, layers: int) -> Dict[str, Any]:
     return s
 
 
+def _ssm_impl(run: RunConfig) -> str:
+    """The Mamba core's algorithm: the CUDA scan on the serving path
+    (``attn_impl="kernel"``), else the plain chunked scan."""
+    return "kernel" if run.attn_impl == "kernel" else "auto"
+
+
 def _mixer_forward(p, h, positions, cfg: ModelConfig, slot: SlotSpec,
                    run: RunConfig):
+    if slot.mixer == "mamba":
+        return ssm_lib.ssm_forward(p, h, positions, cfg, impl=_ssm_impl(run))
     fn = attn.mla_forward if slot.mixer.startswith("mla") else attn.gqa_forward
     return fn(p, h, positions, cfg, slot.mixer, impl=run.attn_impl,
               kv_block=run.kv_block, q_block=run.q_block)
@@ -144,7 +155,12 @@ def slot_decode(p, h, pos, cache, cfg: ModelConfig, slot: SlotSpec,
                 run: RunConfig):
     check_slot(slot)
     u = rms_norm(h, p["mixer_norm"], cfg.norm_eps)
-    if slot.mixer.startswith("mla"):
+    if slot.mixer == "mamba":
+        u, new_cache = ssm_lib.ssm_decode(p["mixer"], u, pos, cache, cfg)
+        for k, v in new_cache.items():  # in place, as the attention writes
+            cache[k].copy_(v)
+        new_cache = cache
+    elif slot.mixer.startswith("mla"):
         u, new_cache = attn.mla_decode(p["mixer"], u, pos, cache, cfg,
                                        slot.mixer, impl=run.attn_impl)
     else:
@@ -160,6 +176,8 @@ def slot_cache_specs(cfg: ModelConfig, slot: SlotSpec, layers: int, batch: int,
                      s_max: int, dtype: str = "bfloat16",
                      kv_quant: bool = False):
     check_slot(slot)
+    if slot.mixer == "mamba":
+        return ssm_lib.ssm_cache_specs(cfg, layers, batch, dtype)
     window = attn._window_for(cfg, slot.mixer)
     eff = min(s_max, window) if window else s_max
     quant = kv_quant and not slot.mixer.startswith("mla")  # MLA stays bf16

@@ -16,9 +16,11 @@ point materializes through, refuses a model the port cannot run before
 any parameter exists.  The prelude (``first_k_dense`` layers: slot 0's
 mixer with the dense MLP at ``cfg.d_ff``) runs before the cycles in
 every entry point, and the slots' MoE aux losses are summed over the
-cycles, one at a time in layer order.  Chunked prefill (``extend_step``),
-multi-codebook models, image prefixes and the Mamba slot are not ported
-yet (ROADMAP A10, A11).
+cycles, one at a time in layer order.  Attention and Mamba-2 slots mix
+in one cycle (jamba): their caches sit side by side under ``slots``, a
+Mamba slot's as its recurrent ``state`` and ``conv`` tail.  Chunked
+prefill (``extend_step``), multi-codebook models, image prefixes and the
+sliding-window slot are not ported yet (ROADMAP A10, A11, A13).
 """
 from __future__ import annotations
 
@@ -316,7 +318,8 @@ def decode_step(params, tokens: torch.Tensor, pos: torch.Tensor, caches,
 
     tokens (B,1) int; pos (B,) int absolute positions; caches as produced
     by ``cache_specs``.  Returns (logits, new_caches).  The caches are
-    written in place (each layer's new entries at ``pos``); a cache whose
+    written in place (each attention layer's new entries at ``pos``, each
+    Mamba layer's whole state and conv tail); a cache whose
     dtype is narrower than the compute dtype is first widened, the dtype
     JAX's one-hot cache write promotes it to, so the returned tree may
     hold new tensors."""

@@ -21,8 +21,10 @@ Design notes:
   (``PagedKVCache.gather_batch``).  Pools and working cache live on the
   device.
 * Prefill runs per request at batch 1, whole-prompt, padded to a
-  power-of-two bucket.  Chunked prefill (``prefill_chunk > 0``) is not
-  ported yet and raises.
+  power-of-two bucket, as JAX's: a Mamba slot's state and conv tail take
+  in the pad tokens there, so the tokens are JAX's, not those of the
+  prompt alone (ROADMAP, faults in the reference).  Chunked prefill
+  (``prefill_chunk > 0``) is not ported yet and raises.
 * Dummy rows decode a masked token-0 at their stale position; their cache
   writes are never committed to the pools and vanish at the next
   admission's regather.

@@ -3,11 +3,13 @@ cached decode with fixed-size linear cache buffers, and the FIFO
 ``BatchScheduler``.
 
 Right-padded prompts + per-example ``pos`` masking means ragged batches
-share one prefill; the decode loop is one step per token across the whole
-batch.  ``prefill`` and ``decode`` are tracer spans whose wall clocks ARE
-the ``GenResult`` timings; each span ends after a host sync (the sampled
-tokens are copied to the host inside it), so on the card it times the
-device work, not its enqueue.  Sampling is greedy (the JAX engine's
+share one prefill (a Mamba slot's state takes in a shorter row's pad
+tokens, as JAX's does: ROADMAP, faults in the reference); the decode
+loop is one step per token across the whole batch.  ``prefill`` and
+``decode`` are tracer spans whose wall clocks ARE the ``GenResult``
+timings; each span ends after a host sync (the sampled tokens are copied
+to the host inside it), so on the card it times the device work, not its
+enqueue.  Sampling is greedy (the JAX engine's
 ``greedy=False`` categorical sampling is not ported).
 """
 from __future__ import annotations
@@ -39,10 +41,15 @@ def place_prefill_cache(cfg: ModelConfig, caches, s_max: int, prompt_len: int,
                         *, ring: bool = True):
     """Fit the prefill caches (length = prompt_len) into the allocated
     buffers, cast to bf16: pad linear caches to s_max; fold SWA caches into
-    their ring.  ``ring=False`` keeps every cache linear (position i at
-    slot i) — the layout the paged KV cache pages in fixed-size blocks."""
+    their ring; a Mamba slot's state and conv tail, which have no sequence
+    axis, are only cast.  ``ring=False`` keeps every cache linear
+    (position i at slot i) — the layout the paged KV cache pages in
+    fixed-size blocks."""
 
     def place_slot(slot: SlotSpec, cache):
+        if slot.mixer == "mamba":
+            return {name: arr.to(torch.bfloat16)
+                    for name, arr in cache.items()}
         window = _window_for(cfg, slot.mixer)
         use_ring = ring and bool(window) and window < s_max
         out = {}

@@ -4,7 +4,13 @@ sharing.
 
 Every sequence-cache leaf (``kv_seq`` axis in ``model.cache_specs``) is
 stored as fixed-size blocks in a preallocated pool, one pool per leaf, and
-a request owns an ordered *block table* of pool indices.
+a request owns an ordered *block table* of pool indices.  Leaves without a
+sequence axis — a Mamba slot's recurrent state and conv tail — have a
+size that does not grow with the request, and are kept whole, per
+request, as bf16 device tensors.  A config with no sequence leaves
+(mamba2) uses no block: it admits whatever fits a row, and publishes no
+prefix (JAX's publish loop indexes the empty table there and raises once
+a prompt reaches ``block_size``: ROADMAP, faults in the reference).
 
 Unlike the JAX package, whose pools are host numpy, the pools here are
 device tensors: at full width a host pool would send the whole working
@@ -115,11 +121,19 @@ def _leaf(tree, path: Tuple[str, ...]):
     return tree
 
 
+def _put(tree, path: Tuple[str, ...], value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
 class PagedKVCache:
     """Block-pooled device storage for every sequence-cache leaf of one
-    model config: pool shape (n_blocks, cycles, block_size, *tail), bf16.
-    One BlockAllocator governs all pools — the leaves of one request's
-    logical block i share a block id."""
+    model config: pool shape (n_blocks, cycles, block_size, *tail), bf16;
+    each request's non-sequence leaves (Mamba state and conv) whole, at
+    their (cycles, *tail) shape, bf16.  One BlockAllocator governs all
+    pools — the leaves of one request's logical block i share a block
+    id."""
 
     def __init__(self, cfg: ModelConfig, *, block_size: int, n_blocks: int,
                  s_max: int, device="cuda"):
@@ -130,12 +144,15 @@ class PagedKVCache:
         self.alloc = BlockAllocator(n_blocks, block_size)
 
         self._seq_paths: List[Tuple[str, ...]] = []
+        self._state_paths: List[Tuple[str, ...]] = []
+        self._state_shapes: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
         self._pools: Dict[Tuple[str, ...], torch.Tensor] = {}
         for path, spec in tree_items(M.cache_specs(cfg, batch=1, s_max=s_max)):
             if not (len(spec.axes) > SEQ_AXIS and spec.axes[SEQ_AXIS] == "kv_seq"):
-                raise NotImplementedError(
-                    f"cache leaf {path} has no sequence axis (recurrent "
-                    "state): not ported yet (ROADMAP A11)")
+                self._state_paths.append(path)
+                self._state_shapes[path] = (spec.shape[0],) + tuple(
+                    spec.shape[2:])  # (cycles, *tail)
+                continue
             self._seq_paths.append(path)
             cycles, tail = spec.shape[0], tuple(spec.shape[SEQ_AXIS + 1:])
             self._pools[path] = torch.zeros(
@@ -146,6 +163,7 @@ class PagedKVCache:
         self._private: Dict[int, List[bool]] = {}
         self._tokens: Dict[int, Tuple[int, ...]] = {}
         self._lengths: Dict[int, int] = {}
+        self._states: Dict[int, Dict[Tuple[str, ...], torch.Tensor]] = {}
 
     # -- admission ----------------------------------------------------------
 
@@ -162,6 +180,8 @@ class PagedKVCache:
         return keys
 
     def can_admit(self, tokens: np.ndarray, total_len: int) -> bool:
+        if not self._seq_paths:
+            return True  # recurrent state only: no block to reserve
         toks = tuple(int(t) for t in np.asarray(tokens).reshape(-1))
         need = sum(1 for k in self._share_keys(toks, total_len)
                    if k is None or self.alloc.lookup(k) is None)
@@ -174,7 +194,8 @@ class PagedKVCache:
         table: List[int] = []
         private: List[bool] = []
         try:
-            for key in self._share_keys(toks, total_len):
+            for key in (self._share_keys(toks, total_len)
+                        if self._seq_paths else []):
                 bid = self.alloc.share(key) if key is not None else None
                 if bid is None:
                     bid = self.alloc.alloc()
@@ -190,6 +211,7 @@ class PagedKVCache:
         self._private[rid] = private
         self._tokens[rid] = toks
         self._lengths[rid] = 0
+        self._states[rid] = {}
 
     def release(self, rid: int) -> None:
         for bid in self._tables.pop(rid):
@@ -197,13 +219,15 @@ class PagedKVCache:
         self._private.pop(rid)
         self._tokens.pop(rid)
         self._lengths.pop(rid)
+        self._states.pop(rid)
 
     # -- writes -------------------------------------------------------------
 
     def write_prefill(self, rid: int, caches, prompt_len: int) -> None:
         """Copy a single-request (B=1, linear, length>=prompt_len) cache
-        tree into the pools; publish full private prompt blocks for prefix
-        sharing.  Shared blocks already hold identical content — skipped."""
+        tree into the pools and the request's state leaves; publish full
+        private prompt blocks for prefix sharing.  Shared blocks already
+        hold identical content — skipped."""
         table, private = self._tables[rid], self._private[rid]
         bs = self.block_size
         for path in self._seq_paths:
@@ -214,8 +238,11 @@ class PagedKVCache:
                     continue
                 lo, hi = i * bs, min((i + 1) * bs, prompt_len)
                 pool[table[i], :, : hi - lo] = arr[:, 0, lo:hi]
+        for path in self._state_paths:
+            self._states[rid][path] = _leaf(caches, path)[:, 0].to(
+                device=self.device, dtype=torch.bfloat16, copy=True)
         toks = self._tokens[rid]
-        for i in range(prompt_len // bs):
+        for i in range(prompt_len // bs if self._seq_paths else 0):
             if private[i] and (i + 1) * bs <= len(toks):
                 self.alloc.publish(table[i], toks[: (i + 1) * bs])
         self._lengths[rid] = prompt_len
@@ -224,21 +251,28 @@ class PagedKVCache:
                      caches) -> None:
         """After one decode step, persist each live row's newly written
         cache entry (sequence position ``positions[j]``) from the working
-        batch cache into the pools: one gather and one scatter per leaf."""
+        batch cache into the pools, one gather and one scatter per leaf,
+        and its whole state leaves, rounded to bf16 (JAX rounds them when
+        it next gathers: the same values)."""
         if not rids:
             return
         bs = self.block_size
         pos = np.asarray(positions, np.int64)
         dev = self.device
         rows_t = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
-        pos_t = torch.as_tensor(pos, device=dev)
-        bids = torch.as_tensor([self._tables[rid][int(p) // bs]
-                                for rid, p in zip(rids, pos)], device=dev)
-        offs = torch.as_tensor(pos % bs, device=dev)
+        if self._seq_paths:
+            pos_t = torch.as_tensor(pos, device=dev)
+            bids = torch.as_tensor([self._tables[rid][int(p) // bs]
+                                    for rid, p in zip(rids, pos)], device=dev)
+            offs = torch.as_tensor(pos % bs, device=dev)
         for path in self._seq_paths:
             vals = _leaf(caches, path)[:, rows_t, pos_t]  # (cycles, n, *tail)
             pool = self._pools[path]
             pool[bids, :, offs] = vals.transpose(0, 1).to(pool.dtype)
+        for path in self._state_paths:
+            vals = _leaf(caches, path)[:, rows_t].to(torch.bfloat16)
+            for j, rid in enumerate(rids):
+                self._states[rid][path] = vals[:, j]
         for j, rid in enumerate(rids):
             self._lengths[rid] = max(self._lengths[rid], int(pos[j]) + 1)
 
@@ -247,7 +281,9 @@ class PagedKVCache:
     def gather_batch(self, row_rids: List[Optional[int]]):
         """Reconstruct a (cycles, len(rows), s_max, *tail) working cache
         tree from the pools — rows with ``None`` zero-filled, positions past
-        a row's length zero.  The pools are the source of truth: this is
+        a row's length zero — and each row's state leaves, (cycles,
+        len(rows), *tail), zero for a free row.  The pools are the source
+        of truth: this is
         the only way cache state enters the decode step after an admission
         reshuffles rows."""
         B = len(row_rids)
@@ -265,10 +301,15 @@ class PagedKVCache:
                 blocks = pool[ids].transpose(0, 1)  # (cycles, nb, bs, *tail)
                 buf[:, row, :n] = blocks.reshape(
                     (cycles, nb * self.block_size) + tail)[:, :n]
-            node = out
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = buf
+            _put(out, path, buf)
+        for path in self._state_paths:
+            shape = self._state_shapes[path]
+            buf = torch.zeros((shape[0], B) + shape[1:], dtype=torch.bfloat16,
+                              device=self.device)
+            for row, rid in enumerate(row_rids):
+                if rid is not None and path in self._states[rid]:
+                    buf[:, row] = self._states[rid][path]
+            _put(out, path, buf)
         return out
 
     def stats(self) -> Dict[str, Any]:

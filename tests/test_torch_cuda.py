@@ -225,6 +225,36 @@ def test_ssd_kernel_matches_plain_version(cuda):
         assert torch.equal(got["y"], y) and torch.equal(got["h"], h), case
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [5, 9, 13])
+def test_ssd_kernel_at_lengths_not_divisible_by_4(cuda, L):
+    """ops.ssd_scan at a prompt length below the chunk that no kernel
+    chunk (a multiple of 4) divides, as the static engine prefills it: one
+    launch on the rows padded with dt = 0, y (the padded rows dropped) and
+    the final state against ref.ssd_scan_ref on the unpadded inputs; at
+    mamba2-780m's width and the reduced config's."""
+    from repro_torch.kernels import ssd_scan as ssd_k
+    gen = torch.Generator(device=cuda).manual_seed(L)
+    for (B, H, P, N, chunk) in ((2, 48, 64, 128, 256), (2, 16, 32, 32, 32)):
+        xbc = torch.randn(B, L, H * P + 2 * N, device=cuda,
+                          generator=gen).to(torch.bfloat16)
+        x = xbc[..., :H * P].reshape(B, L, H, P)
+        b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+        dt = torch.nn.functional.softplus(
+            torch.randn(B, L, H, device=cuda, generator=gen)).to(torch.bfloat16)
+        a = -torch.exp(torch.randn(H, device=cuda, generator=gen) * 0.5)
+        before = ssd_k.ssd_scan.launches
+        y, h = ops.ssd_scan(x, dt, a, b, c, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ssd_k.ssd_scan.launches == before + 1
+        assert y.shape == (B, L, H, P)
+        wy, wh = ref.ssd_scan_ref(x.transpose(1, 2), dt.transpose(1, 2), a, b,
+                                  c, chunk=chunk)
+        torch.testing.assert_close(y.float(), wy.transpose(1, 2).float(),
+                                   **TOL)
+        torch.testing.assert_close(h, wh, rtol=1e-3, atol=1e-3)
+
+
 # ---------------------------------------------------------------------------
 # Training on the card: no kernel under autograd; the step against the CPU's
 # ---------------------------------------------------------------------------

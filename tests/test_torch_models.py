@@ -266,10 +266,10 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         tattn.attn_cache_specs(tcfg, "attn", 1, 1, 8, kv_quant=True)
     # the specs of every arch exist (the planner prices them); a model the
-    # port cannot run (multi-codebook, image prefix, the Mamba slot) is
-    # refused before any parameter is materialized
+    # port cannot run (multi-codebook, image prefix, the sliding-window
+    # slot) is refused before any parameter is materialized
     for arch, leaf in (("musicgen-large", "wq"), ("llava-next-34b", "wq"),
-                       ("mamba2-780m", "w_xbc")):
+                       ("gemma2-27b", "wq")):
         cfg = get_config(arch).reduced()
         assert leaf in TM.model_specs(cfg)["slots"]["slot0"]["mixer"]
         with pytest.raises(NotImplementedError):

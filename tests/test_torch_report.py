@@ -59,10 +59,12 @@ TIMEOUT = timedelta(seconds=60)
 JOIN_S = 120
 # the TPU clusters both packages price identically
 SHARED_TOPOLOGIES = ("2x4", "4x4-ib", "flat8", "p2-2x8")
-# MLA, MoE and the dense prelude: ported, so trained and served below
+# MLA, MoE and the dense prelude, and the Mamba slot: ported, so trained
+# and served below
 MOE_MLA = ("minicpm3-4b", "deepseek-v2-236b", "arctic-480b")
+MAMBA = ("mamba2-780m", "jamba-1.5-large-398b")
 UNPORTED = tuple(a for a in ARCH_IDS
-                 if a not in ("granite-3-2b", "qwen2-72b") + MOE_MLA)
+                 if a not in ("granite-3-2b", "qwen2-72b") + MOE_MLA + MAMBA)
 
 
 def _load(name):
@@ -532,20 +534,31 @@ def test_launcher_plan_runs_in_process(capsys):
     assert json.loads(out[-1])["kind"] == "train"
 
 
-@pytest.mark.parametrize("arch", MOE_MLA)
+@pytest.mark.parametrize("arch", MOE_MLA + MAMBA)
 def test_moe_mla_archs_train_and_serve_through_both_validators(arch):
-    """minicpm3-4b, deepseek-v2-236b and arctic-480b (once refused here)
-    train and serve at reduced size on the CPU: both serve modes, the MoE
-    aux in the loss, and every report through both packages'
-    validate_report."""
+    """minicpm3-4b, deepseek-v2-236b, arctic-480b, mamba2-780m and
+    jamba-1.5-large-398b (once refused here) train and serve at reduced
+    size on the CPU: both serve modes, the MoE aux in the loss, and every
+    report through both packages' validate_report.  The static engine
+    prefills at the batch's longest prompt, and a Mamba scan takes a
+    length past its chunk only if the chunk divides it (JAX asserts so):
+    the workload's prompts of 33-47 tokens fail the reduced chunk of 32
+    (ValueError), so static serving of a Mamba arch runs at chunk 64."""
     rep = Session(JobSpec(arch=arch, **_TRAIN), device="cpu").train()
     d = json.loads(rep.to_json())
     assert validate_report(d) == d
     jax_validate_report(d)
     assert all(np.isfinite(d["measured"]["losses"]))
+    cfg = get_config(arch).reduced()
+    if arch in MAMBA:
+        with pytest.raises(ValueError, match="not a multiple of chunk 32"):
+            Session(JobSpec(arch=arch, serve_mode="static", **_SERVE),
+                    device="cpu").serve()
     for mode in ("continuous", "static"):
+        config = (cfg.replace(ssm_chunk=64)
+                  if arch in MAMBA and mode == "static" else None)
         rep = Session(JobSpec(arch=arch, serve_mode=mode, **_SERVE),
-                      device="cpu").serve()
+                      config=config, device="cpu").serve()
         d = json.loads(rep.to_json())
         assert validate_report(d) == d
         jax_validate_report(d)
