@@ -238,6 +238,38 @@ Phases, each fatal on failure (exit code != 0, no result line):
    PipelineTrainer at pipe 2 on reduced jamba deepened to 4 cycles, both
    stages on this card, bitwise the single-stage trainer.  It prints the
    phase's wall time.
+17. the last three architectures and their serving options — every run
+   with the counters zeroed just before and read just after, B1 and B2
+   only: (1) Session.serve() of gemma2-27b at full widths cut to 16 of
+   its 46 layers (8 swa + global cycles; ~62 GB at peak), continuous and
+   static, 8 requests, n_new <= 32, s_max 512 < window 4096, so every
+   cache is linear: B1 = prefills x 16, B2 = decode steps x 16; (2) one
+   Engine.generate of a 4300-token prompt at s_max 4608: B1 16 launches,
+   the window binding on the swa slots, whose caches are 4096-slot rings
+   that wrap and decode on "dense" (models.attention.decode_impl), so B2
+   = 8 global slots x 7 steps; the same prompt through the continuous
+   engine at s_max 4608, whose caches are linear: B1 16, B2 = 16 x engine
+   steps, the window binding in B2 on the swa slots past position 4096;
+   a static Engine.generate at s_max 4096 == window, linear too: B1 16,
+   B2 16 x 7; (3) a sampled generate (greedy=False) on
+   the card, one seed twice, the same tokens; (4) one cycle's 4300-token
+   prefill logits (positions 4032 on) on B1 against "dense" at the bf16
+   tolerance, attention smoothed; (5) gemma2 trained at one cycle (2
+   layers), 4 x 512, 3 steps; (6) musicgen-large whole (48 layers, 4
+   codebooks, MHA: G = 1, D 64) served in both modes (B1 = prefills x
+   48, B2 = decode steps x 48) and trained at 4 x 512; (7) llava-next-34b
+   at full widths cut to 16 of 60 layers: Engine.generate of 2 ragged rows
+   after a 576-token image prefix (B1 16, B2 16 x 15), the tokens differing
+   without the prefix; trained at 2 layers with the prefix; (8)
+   full-width granite-3-2b served continuous with prefill_chunk 16
+   (chunks in plain PyTorch, each prompt <= 16 on B1), then at one layer
+   a 45-token prompt's first-token logits from extend_step against the
+   whole-prompt prefill at the bf16 tolerance; (9) an int8 KV
+   decode_step (one full-width granite layer at fp32, 4 steps) on the
+   card against the CPU's at the bf16 tolerance.  It adds B1 and B2 rows
+   at gemma2's (window 4096, cap 50; S 4300 and 64; B2 at s_max 512, and
+   at 4608 on a swa slot past the window and on a global slot), musicgen's and llava's (S 616, G = 7) shapes to the kernels
+   line, each with the launches of its path, and prints the phase's wall.
 
 Then it prints the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line, and, last, the
@@ -2605,6 +2637,496 @@ def campaign_phase(torch, wrappers, calibration) -> None:
           f" s ({card_label()})", flush=True)
 
 
+# phase 17: the last three architectures and the serving options they need
+GEMMA_LAYERS = 16  # gemma2-27b served cut to 16 of its 46 layers (8 cycles)
+LLAVA_LAYERS = 16  # llava-next-34b served cut to 16 of its 60 layers
+TRAIN_LAYERS = 2  # gemma2 (one cycle) and llava trained at 2 layers
+LONG_PROMPT, LONG_S_MAX = 4300, 4608  # gemma2: the window (4096) binds
+
+
+def zero_counts(torch, wrappers) -> None:
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+
+
+def read_counts(torch, wrappers) -> dict:
+    torch.cuda.synchronize()
+    return {n: fn.launches for n, fn in wrappers.items()}
+
+
+def serve_session(torch, wrappers, arch, cfg, mode, label, card, *,
+                  requests=8, n_new=32, **kw):
+    """Session.serve() of ``cfg`` at full width, the counters zeroed just
+    before and read just after; fails on a missing token, a non-finite
+    logits row or an invalid report.  Returns (launches, prefills, decode
+    steps, prefill chunks, prompt lengths): a continuous run's decode
+    steps are its engine steps, a static batch's are n_new - 1 (its first
+    token comes from the prefill)."""
+    from repro_torch.api import JobSpec, Session, validate_report
+
+    spec = JobSpec(arch=arch, reduced=False, requests=requests, n_new=n_new,
+                   s_max=512, max_batch=4, serve_mode=mode, **kw)
+    session = Session(spec, config=cfg, device="cuda")
+    want = [n for _, _, n in session._serve_workload()]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(torch, wrappers)
+    rep = session.serve()
+    launches = read_counts(torch, wrappers)
+    validate_report(rep.to_dict())
+    m = rep.measured
+    hists, counters = m["metrics"]["histograms"], m["metrics"]["counters"]
+    got = [r["tokens"] for r in m["per_request"]]
+    if got != want:
+        fail(f"{label} {mode}: tokens per request {got} != n_new {want}")
+    if counters["serve/nonfinite_logit_rows"]:
+        fail(f"{label} {mode}: {counters['serve/nonfinite_logit_rows']} "
+             "logits rows hold NaN or inf")
+    if mode == "continuous":
+        prefills = hists["serve/prefill_s"]["count"]
+        steps = m["serving"]["throughput"]["engine_steps"]
+    else:
+        prefills = len(m["batches"])
+        steps = sum(b["n_new"] - 1 for b in m["batches"])
+    chunks = hists.get("serve/prefill_chunk_s", {}).get("count", 0)
+    lengths = m["prompt_lengths"]
+    print(f"[zoo] {label} ({rep.meta['executed_config']['n_params']:,} "
+          f"params), Session.serve() {mode}: {requests} requests (prompts "
+          f"{m['prompt_lengths']}), n_new up to {n_new}, s_max 512, "
+          f"max_batch 4{', prefill_chunk ' + str(kw['prefill_chunk']) if kw else ''}: "
+          f"{m['n_tokens']} tokens in {m['wall_s']:.3f} s = "
+          f"{m['tokens_per_s']:.1f} tok/s; prefill p50 "
+          f"{hists['serve/prefill_s']['p50'] * 1e3:.2f} ms over {prefills}"
+          f"{' (+' + str(chunks) + ' chunks)' if chunks else ''}; "
+          f"{steps} decode steps; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(max_memory_allocated); launches "
+          f"{ {n: c for n, c in launches.items() if c} } ({card})",
+          flush=True)
+    del rep, session
+    torch.cuda.empty_cache()
+    return launches, prefills, steps, chunks, lengths
+
+
+def b2_layers(cfg, s_max: int, ring: bool) -> int:
+    """Layers whose decode runs B2: every attention layer but a sliding-
+    window one whose cache is a ring (the static engine (``ring``) folds
+    its prefill into one of ``window`` slots when ``window < s_max``),
+    which decodes on "dense".  Every linear cache runs B2, one exactly as
+    long as the window (``s_max == window``) too."""
+    w = cfg.sliding_window
+    per_cycle = sum(not (ring and slot.mixer == "swa" and w and w < s_max)
+                    for slot in cfg.pattern)
+    return per_cycle * (cfg.num_layers // len(cfg.pattern))
+
+
+def expect(label, launches, b1, b2) -> None:
+    """B1 and B2 launches exactly ``b1`` and ``b2``, no other kernel."""
+    if launches["flash_attention"] != b1 or \
+            launches["decode_attention"] != b2 or \
+            launches["paged_decode_attention"] or launches["ssd_scan"]:
+        fail(f"{label}: launches {launches}, want B1 {b1}, B2 {b2}, no "
+             "other kernel")
+
+
+def train_session(torch, wrappers, arch, cfg, label, card):
+    """Session.train() of ``cfg``: 3 steps at batch 4 x seq 512, no kernel
+    launch, every loss finite.  Returns nothing; prints the run."""
+    from repro_torch.api import JobSpec, Session, validate_report
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(torch, wrappers)
+    t0 = time.perf_counter()
+    rep = Session(JobSpec(arch=arch, reduced=False, steps=3, batch=4,
+                          seq=512, log_every=0), config=cfg,
+                  device="cuda").train()
+    launches = read_counts(torch, wrappers)
+    validate_report(rep.to_dict())
+    m = rep.measured
+    hist = m["metrics"]["histograms"]["train/step_s"]
+    print(f"[zoo] {label} ({rep.meta['executed_config']['n_params']:,} "
+          f"params), Session.train() batch 4 x seq 512, 3 steps (auto "
+          f"attention, block remat, AdamW on fp32 masters): losses "
+          f"{[round(v, 4) for v in m['losses']]}; step p50 "
+          f"{hist['p50'] * 1e3:.1f} ms; {m['tokens_per_s']:.1f} tok/s over "
+          f"the run; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(max_memory_allocated); wall {time.perf_counter() - t0:.1f} s "
+          f"({card})", flush=True)
+    if not all(map(math.isfinite, m["losses"])):
+        fail(f"{label} training losses {m['losses']}: not finite")
+    if any(launches.values()):
+        fail(f"{label} training launched kernels: {launches}")
+    del rep
+    torch.cuda.empty_cache()
+
+
+def zoo_phase(torch, mods, wrappers) -> list:
+    """Phase 17: gemma2-27b, musicgen-large and llava-next-34b, chunked
+    prefill, int8 KV caches and sampled decoding (see the module
+    docstring).  Returns B1 and B2 cases at the three models' shapes,
+    each with the launches of the path that runs it."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.blocks import RunConfig
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve.engine import Engine
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    cases = []
+    gemma = get_config("gemma2-27b")
+    n_global = sum(s.mixer == "attn" for s in gemma.pattern)
+
+    # 17.1: gemma2 at full widths, 16 layers: both serve modes (s_max 512
+    # < window: every cache is linear, B2 on every slot)
+    gcut = gemma.replace(num_layers=GEMMA_LAYERS)
+    label = (f"gemma2-27b full widths, {GEMMA_LAYERS} of 46 layers "
+             f"({GEMMA_LAYERS // 2} swa + global cycles)")
+    gem = {}
+    for mode in ("continuous", "static"):
+        launches, prefills, steps, _, _ = serve_session(
+            torch, wrappers, "gemma2-27b", gcut, mode, label, card)
+        expect(f"gemma2 {mode}", launches, prefills * GEMMA_LAYERS,
+               steps * b2_layers(gcut, 512, mode == "static"))
+        gem[mode] = launches
+
+    # 17.2: one Engine.generate of a 4300-token prompt at s_max 4608: B1
+    # with the window binding on the swa slots; their caches are 4096-slot
+    # rings that wrap, decoded on "dense"; B2 on the global slots only
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(gcut, RunConfig(attn_impl="kernel"), s_max=LONG_S_MAX,
+                 device="cuda")
+    gen = torch.Generator().manual_seed(17)
+    long_prompt = torch.randint(0, gemma.vocab_size, (1, LONG_PROMPT),
+                                generator=gen).numpy()
+    n_new = 8
+    zero_counts(torch, wrappers)
+    res = eng.generate(long_prompt, n_new)
+    long_launches = read_counts(torch, wrappers)
+    ring = eng.s_max > gemma.sliding_window
+    print(f"[zoo] gemma2 {GEMMA_LAYERS} layers, Engine.generate of a "
+          f"{LONG_PROMPT}-token prompt at s_max {LONG_S_MAX} (window "
+          f"{gemma.sliding_window}: swa caches are rings of "
+          f"{gemma.sliding_window} that wrap, on dense): {n_new} tokens "
+          f"{res.tokens[0].tolist()} ({res.tokens_per_s:.1f} tok/s); "
+          f"prefill {res.prefill_s * 1e3:.1f} ms, decode "
+          f"{res.decode_s / (n_new - 1) * 1e3:.2f} ms a step; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{ {n: c for n, c in long_launches.items() if c} } ({card})",
+          flush=True)
+    expect("gemma2 long prompt", long_launches, GEMMA_LAYERS,
+           b2_layers(gcut, LONG_S_MAX, True) * (n_new - 1))
+    if b2_layers(gcut, LONG_S_MAX, True) != (GEMMA_LAYERS // 2) * n_global:
+        fail("gemma2 long prompt: the swa slots' caches are not rings")
+    if not ring or eng.metrics.counter("serve/nonfinite_logit_rows").value:
+        fail("gemma2 long prompt: no ring, or non-finite logits")
+
+    # 17.3: one sampled generate on the card: one seed twice, the same
+    # tokens; greedy=True the default
+    prompt = long_prompt[:, :48]
+    draws = [eng.generate(prompt, n_new, greedy=False, seed=s).tokens
+             for s in (5, 5, 6)]
+    print(f"[zoo] gemma2 sampled generate (48-token prompt, softmax draws "
+          f"on the card): seed 5 {draws[0][0].tolist()} twice "
+          f"{'equal' if (draws[0] == draws[1]).all() else 'DIFFERENT'}, "
+          f"seed 6 {draws[2][0].tolist()}", flush=True)
+    if not (draws[0] == draws[1]).all() or draws[0].max() >= gemma.vocab_size:
+        fail("sampled generate: one seed gave two token streams")
+
+    # 17.2 (continued): the same prompt through the continuous engine at
+    # s_max 4608, on the same weights: its paged working cache is linear,
+    # so B2 runs on every layer, the window binding on the swa slots at
+    # positions past 4096; then a static generate at s_max 4096 == window,
+    # whose caches are linear too: B2 on every layer
+    from repro_torch.serve.continuous import (ContinuousEngine,
+                                              ContinuousScheduler)
+    from repro_torch.serve.kvcache import PagedKVCache
+
+    ceng = ContinuousEngine(gcut, RunConfig(attn_impl="kernel"), eng.params,
+                            s_max=LONG_S_MAX, max_batch=1, device="cuda")
+    sched = ContinuousScheduler(ceng, PagedKVCache(
+        gcut, block_size=16, n_blocks=LONG_S_MAX // 16, s_max=LONG_S_MAX,
+        device="cuda"))
+    sched.submit(long_prompt[0], n_new)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(torch, wrappers)
+    t0 = time.perf_counter()
+    cont_tokens = sched.run()[0]
+    cont_launches = read_counts(torch, wrappers)
+    wall = time.perf_counter() - t0
+    cont_steps = sched.stats["engine_steps"]
+    print(f"[zoo] gemma2 {GEMMA_LAYERS} layers, the {LONG_PROMPT}-token "
+          f"prompt through the continuous engine at s_max {LONG_S_MAX} "
+          f"(linear caches: B2 on the swa slots with the window binding "
+          f"past position {gemma.sliding_window}): {n_new} tokens "
+          f"{np.asarray(cont_tokens).tolist()} (the static engine's ring: "
+          f"{'equal' if np.array_equal(cont_tokens, res.tokens[0]) else 'different'}"
+          f") in {wall:.3f} s; {cont_steps} engine steps; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{ {n: c for n, c in cont_launches.items() if c} } ({card})",
+          flush=True)
+    expect("gemma2 long prompt, continuous", cont_launches, GEMMA_LAYERS,
+           b2_layers(gcut, LONG_S_MAX, False) * cont_steps)
+    if b2_layers(gcut, LONG_S_MAX, False) != GEMMA_LAYERS or \
+            ceng.metrics.counter("serve/nonfinite_logit_rows").value or \
+            np.asarray(cont_tokens).shape != (n_new,):
+        fail("gemma2 long prompt, continuous: not every layer on B2, "
+             "non-finite logits or missing tokens")
+    del sched, ceng
+    lin = Engine(gcut, RunConfig(attn_impl="kernel"), eng.params,
+                 s_max=gemma.sliding_window, device="cuda")
+    zero_counts(torch, wrappers)
+    short = gemma.sliding_window // 4
+    res_lin = lin.generate(long_prompt[:, :short], n_new)
+    lin_launches = read_counts(torch, wrappers)
+    print(f"[zoo] gemma2 {GEMMA_LAYERS} layers, Engine.generate of a "
+          f"{short}-token prompt at s_max {gemma.sliding_window} == window "
+          f"(linear caches, B2 on every layer): {n_new} tokens "
+          f"({res_lin.tokens_per_s:.1f} tok/s); launches "
+          f"{ {n: c for n, c in lin_launches.items() if c} } ({card})",
+          flush=True)
+    expect("gemma2 s_max == window", lin_launches, GEMMA_LAYERS,
+           b2_layers(gcut, gemma.sliding_window, True) * (n_new - 1))
+    if b2_layers(gcut, gemma.sliding_window, True) != GEMMA_LAYERS or \
+            lin.metrics.counter("serve/nonfinite_logit_rows").value:
+        fail("gemma2 s_max == window: not every layer on B2, or non-finite "
+             "logits")
+    del eng, res, lin, res_lin
+    torch.cuda.empty_cache()
+
+    # 17.4: one cycle's prefill logits, B1 (window 4096, cap 50) against
+    # the plain dense path on the same bf16 weights, attention smoothed
+    g2 = gemma.replace(num_layers=2)
+    params = smooth_mixers(M.cast_params(M.init_params(g2, 0, "cuda"), g2))
+    toks = torch.as_tensor(long_prompt, device="cuda")
+    out = {}
+    with torch.no_grad():
+        for impl in ("kernel", "dense"):
+            zero_counts(torch, wrappers)
+            logits, _, _ = M.forward(params, {"tokens": toks}, g2,
+                                     RunConfig(attn_impl=impl))
+            out[impl] = (logits[0, gemma.sliding_window - 64:,
+                                :gemma.vocab_size].float(),
+                         read_counts(torch, wrappers)["flash_attention"])
+            del logits
+    got, want = out["kernel"][0], out["dense"][0]
+    err = (got - want).abs().max().item()
+    lim = TOL + TOL * want.abs().max().item()
+    print(f"[zoo] gemma2 one cycle (swa + global), {LONG_PROMPT}-token "
+          f"prefill logits at positions {gemma.sliding_window - 64}.."
+          f"{LONG_PROMPT - 1}: B1 ({out['kernel'][1]} launches) vs dense, "
+          f"max |diff| {err:.4f} (limit {lim:.4f}); argmax agree at "
+          f"{(got.argmax(-1) == want.argmax(-1)).float().mean().item():.4f} "
+          f"of positions", flush=True)
+    if err > lim or out["kernel"][1] != 2 or not bool(
+            torch.isfinite(got).all()):
+        fail(f"gemma2 prefill: B1 and dense differ by {err}")
+    del params, out, got, want
+    torch.cuda.empty_cache()
+
+    # 17.5: gemma2 trained at one cycle
+    train_session(torch, wrappers, "gemma2-27b", g2,
+                  "gemma2-27b full widths, one cycle (2 of 46 layers)", card)
+
+    # 17.6: musicgen-large whole: both serve modes (4 codebooks; MHA, G =
+    # 1, D 64) and training
+    mus = get_config("musicgen-large")
+    L_mus = mus.num_layers
+    musl = {}
+    for mode in ("continuous", "static"):
+        launches, prefills, steps, _, _ = serve_session(
+            torch, wrappers, "musicgen-large", mus, mode,
+            f"musicgen-large whole ({L_mus} layers, 4 codebooks)", card)
+        expect(f"musicgen {mode}", launches, prefills * L_mus, steps * L_mus)
+        musl[mode] = launches
+    train_session(torch, wrappers, "musicgen-large", mus,
+                  f"musicgen-large whole ({L_mus} layers)", card)
+
+    # 17.7: llava: Engine.generate after a 576-token image prefix, and
+    # training with the prefix
+    llava = get_config("llava-next-34b")
+    lcut = llava.replace(num_layers=LLAVA_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(lcut, RunConfig(attn_impl="kernel"), s_max=1024,
+                 device="cuda")
+    n_img = llava.num_image_tokens
+    prompts = torch.randint(0, llava.vocab_size, (2, 40),
+                            generator=gen).numpy()
+    lengths = np.array([40, 23], np.int32)
+    images = (torch.randn(2, n_img, llava.d_model, generator=gen)
+              * 0.02).numpy()
+    zero_counts(torch, wrappers)
+    res = eng.generate(prompts, 16, lengths=lengths, image_embeds=images)
+    llava_launches = read_counts(torch, wrappers)
+    plain = eng.generate(prompts, 16, lengths=lengths).tokens
+    print(f"[zoo] llava-next-34b full widths, {LLAVA_LAYERS} of 60 layers, "
+          f"Engine.generate of 2 rows (prompts {lengths.tolist()} after the "
+          f"{n_img}-token image prefix, decode from positions "
+          f"{(lengths + n_img).tolist()}), 16 tokens each: "
+          f"{2 * 16 / (res.prefill_s + res.decode_s):.1f} tok/s; prefill "
+          f"{res.prefill_s * 1e3:.1f} ms, decode "
+          f"{res.decode_s / 15 * 1e3:.2f} ms a step; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; tokens differ "
+          f"without the prefix: {not (plain == res.tokens).all()}; launches "
+          f"{ {n: c for n, c in llava_launches.items() if c} } ({card})",
+          flush=True)
+    expect("llava generate", llava_launches, LLAVA_LAYERS,
+           LLAVA_LAYERS * 15)
+    if eng.metrics.counter("serve/nonfinite_logit_rows").value:
+        fail("llava generate: non-finite logits")
+    del eng, res
+    torch.cuda.empty_cache()
+    train_session(torch, wrappers, "llava-next-34b",
+                  llava.replace(num_layers=TRAIN_LAYERS),
+                  f"llava-next-34b full widths, {TRAIN_LAYERS} of 60 layers, "
+                  f"{n_img}-token image prefix", card)
+
+    # 17.8: chunked prefill: full-width granite-3-2b continuous with
+    # prefill_chunk 16 (prompts longer than 16 go a chunk a tick, in plain
+    # PyTorch; shorter ones on B1), then at one layer the last chunk's
+    # logits against the whole-prompt prefill's
+    granite = get_config("granite-3-2b")
+    launches, prefills, steps, chunks, lengths = serve_session(
+        torch, wrappers, "granite-3-2b", granite, "continuous",
+        "granite-3-2b full width (40 layers)", card, prefill_chunk=16)
+    whole = sum(n <= 16 for n in lengths)  # prompts no longer than a chunk
+    expect("granite chunked", launches, whole * granite.num_layers,
+           steps * granite.num_layers)
+    want_chunks = sum(-(-n // 16) for n in lengths if n > 16)
+    print(f"[zoo] granite chunked: {chunks} chunks in plain PyTorch (want "
+          f"{want_chunks}), {whole} whole-prompt prefills (prompts <= 16) "
+          f"on B1", flush=True)
+    if chunks != want_chunks:
+        fail(f"granite chunked: {chunks} chunks, want {want_chunks}")
+    g1 = granite.replace(num_layers=1)
+    params = M.cast_params(M.init_params(g1, 0, "cuda"), g1)
+    toks = torch.randint(0, granite.vocab_size, (1, 45), generator=gen
+                         ).to("cuda")
+    with torch.no_grad():
+        whole, _, _ = M.forward(params, {"tokens": toks}, g1,
+                                RunConfig(attn_impl="kernel"))
+        caches = tree_map(lambda sp: torch.zeros(
+            sp.shape, dtype=torch.bfloat16, device="cuda"),
+            M.cache_specs(g1, 1, 64))
+        for lo in range(0, 45, 16):
+            chunk = torch.zeros((1, 16), dtype=toks.dtype, device="cuda")
+            n = min(16, 45 - lo)
+            chunk[:, :n] = toks[:, lo:lo + n]
+            lg, caches = M.extend_step(params, chunk, torch.tensor(
+                [lo], dtype=torch.int32, device="cuda"), caches, g1,
+                RunConfig(attn_impl="kernel"))
+    V = granite.vocab_size
+    got, want = lg[0, n - 1, :V].float(), whole[0, -1, :V].float()
+    err = (got - want).abs().max().item()
+    lim = TOL + TOL * want.abs().max().item()
+    print(f"[zoo] granite one layer, a 45-token prompt in chunks of 16 "
+          f"(extend_step, bf16 caches): first-token logits vs the "
+          f"whole-prompt prefill max |diff| {err:.4f} (limit {lim:.4f}), "
+          f"argmax {int(got.argmax())} vs {int(want.argmax())}", flush=True)
+    if err > lim:
+        fail(f"chunked prefill differs from whole-prompt by {err}")
+
+    # 17.9: one int8 decode_step on the card against the CPU's, one
+    # full-width granite layer at fp32, 4 teacher-forced steps
+    g32 = g1.replace(dtype="float32")
+    p_cpu = M.init_params(g32, 0, "cpu")
+    p_gpu = tree_map(lambda a: a.to("cuda"), p_cpu)
+    toks = torch.randint(0, granite.vocab_size, (2, 4), generator=gen)
+    outs = {}
+    for side, dev, p in (("card", "cuda", p_gpu), ("host", "cpu", p_cpu)):
+        caches = tree_map(lambda sp: torch.zeros(
+            sp.shape, dtype={"int8": torch.int8,
+                             "float32": torch.float32}[sp.dtype], device=dev),
+            M.cache_specs(g32, 2, 64, kv_quant=True))
+        with torch.no_grad():
+            for i in range(4):
+                lg, caches = M.decode_step(
+                    p, toks[:, i:i + 1].to(dev),
+                    torch.full((2,), i, dtype=torch.int32, device=dev),
+                    caches, g32, RunConfig(attn_impl="kernel"))
+        outs[side] = (lg[:, 0, :V].float().cpu(),
+                      caches["slots"]["slot0"]["k"].cpu())
+    err = (outs["card"][0] - outs["host"][0]).abs().max().item()
+    lim = TOL + TOL * outs["host"][0].abs().max().item()
+    same = (outs["card"][1] == outs["host"][1]).float().mean().item()
+    print(f"[zoo] int8 KV decode_step, one granite layer at fp32, 4 steps: "
+          f"card vs CPU logits max |diff| {err:.3e} (limit {lim:.3e}); the "
+          f"int8 k cache equal at {same:.6f} of entries (dtype "
+          f"{outs['card'][1].dtype})", flush=True)
+    if err > lim or outs["card"][1].dtype != torch.int8:
+        fail(f"int8 decode: card and CPU differ by {err}")
+    del params, p_cpu, p_gpu, outs
+    torch.cuda.empty_cache()
+
+    # B1 and B2 at the three models' shapes, each with its path's launches
+    Hg, KVg, Dg = gemma.num_heads, gemma.num_kv_heads, gemma.head_dim
+    win, cap = gemma.sliding_window, gemma.attn_softcap
+    cases.append((f"flash_attention[gemma2 swa prefill: S={LONG_PROMPT},"
+                  f"H={Hg},KV={KVg},D={Dg},window={win},cap={cap:g}]",
+                  "flash_attention",
+                  {**flash_case(torch, mods, S=LONG_PROMPT, window=win,
+                                cap=cap, H=Hg, KV=KVg, D=Dg),
+                   "launches": long_launches["flash_attention"]}))
+    cases.append((f"flash_attention[gemma2 serve: S=64,H={Hg},KV={KVg},"
+                  f"D={Dg},window={win},cap={cap:g}]", "flash_attention",
+                  {**flash_case(torch, mods, S=64, window=win, cap=cap,
+                                H=Hg, KV=KVg, D=Dg),
+                   "launches": gem["continuous"]["flash_attention"]}))
+    cases.append((f"decode_attention[gemma2 serve: B=4,S=512,H={Hg},"
+                  f"KV={KVg},D={Dg},window={win},cap={cap:g}]",
+                  "decode_attention",
+                  {**decode_case(torch, mods, B=4, S=512, pos=[47, 20, 63, 9],
+                                 window=win, cap=cap, H=Hg, KV=KVg, D=Dg),
+                   "launches": gem["continuous"]["decode_attention"]}))
+    cases.append((f"decode_attention[gemma2 swa, long prompt, continuous: "
+                  f"B=1,S={LONG_S_MAX},H={Hg},KV={KVg},D={Dg},window={win},"
+                  f"cap={cap:g}]", "decode_attention",
+                  {**decode_case(torch, mods, B=1, S=LONG_S_MAX,
+                                 pos=[LONG_PROMPT + n_new - 2], window=win,
+                                 cap=cap, H=Hg, KV=KVg, D=Dg),
+                   "launches": cont_launches["decode_attention"]}))
+    cases.append((f"decode_attention[gemma2 global, long prompt: B=1,"
+                  f"S={LONG_S_MAX},H={Hg},KV={KVg},D={Dg},cap={cap:g}]",
+                  "decode_attention",
+                  {**decode_case(torch, mods, B=1, S=LONG_S_MAX,
+                                 pos=[LONG_PROMPT + n_new - 2], cap=cap,
+                                 H=Hg, KV=KVg, D=Dg),
+                   "launches": long_launches["decode_attention"]}))
+    Hm, Dm = mus.num_heads, mus.head_dim
+    cases.append((f"flash_attention[musicgen serve: S=64,H=KV={Hm},D={Dm}]",
+                  "flash_attention",
+                  {**flash_case(torch, mods, S=64, H=Hm, KV=Hm, D=Dm),
+                   "launches": musl["continuous"]["flash_attention"]}))
+    cases.append((f"decode_attention[musicgen serve: B=4,S=512,H=KV={Hm},"
+                  f"D={Dm}]", "decode_attention",
+                  {**decode_case(torch, mods, B=4, S=512, pos=[47, 20, 63, 9],
+                                 H=Hm, KV=Hm, D=Dm),
+                   "launches": musl["continuous"]["decode_attention"]}))
+    Hl, KVl, Dl = llava.num_heads, llava.num_kv_heads, llava.head_dim
+    S_l = n_img + 40
+    cases.append((f"flash_attention[llava prefix prefill: B=2,S={S_l},"
+                  f"H={Hl},KV={KVl},D={Dl}]", "flash_attention",
+                  {**flash_case(torch, mods, S=S_l, B=2, H=Hl, KV=KVl, D=Dl),
+                   "launches": llava_launches["flash_attention"]}))
+    cases.append((f"decode_attention[llava after the prefix: B=2,S=1024,"
+                  f"H={Hl},KV={KVl},D={Dl}]", "decode_attention",
+                  {**decode_case(torch, mods, B=2, S=1024,
+                                 pos=[n_img + 40 + 7, n_img + 23 + 7],
+                                 H=Hl, KV=KVl, D=Dl),
+                   "launches": llava_launches["decode_attention"]}))
+    print_cases(cases)
+    print(f"[zoo] the kernel cases above: {card}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return cases
+
+
 def main() -> None:
     import torch
 
@@ -2827,6 +3349,9 @@ def main() -> None:
 
     # 16. the Mamba slot -------------------------------------------------------------
     cases += mamba_phase(torch, mods, wrappers)
+
+    # 17. gemma2, musicgen, llava; chunked prefill, int8 KV, sampling ------------------
+    cases += zoo_phase(torch, mods, wrappers)
 
     leaked = sorted(n for n in sys.modules
                     if n.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",

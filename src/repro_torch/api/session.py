@@ -105,7 +105,20 @@ def serve_attn_impl(cfg: ModelConfig) -> str:
     single-token step in plain PyTorch, as JAX's), ``"dense"`` for an MLA
     model, whose q/k and v head dims differ (the flash kernel, like JAX's
     Pallas kernel, takes one head dim; MLA decodes in the absorbed-latent
-    form, which no kernel carries)."""
+    form, which no kernel carries).
+
+    On ``"kernel"`` every GQA prefill runs B1, with a sliding-window
+    slot's window and the softcap (gemma2: window 4096 on its swa slots,
+    cap 50 on all).  Decode runs B2 on every linear cache, whose slot j
+    holds position j: the continuous engine's paged working cache at any
+    ``s_max``, and the static engine's at ``s_max <= window``.  The
+    static engine at ``s_max > window`` folds a swa slot's prefill into
+    a ring of ``window`` slots, which can wrap; that slot decodes on
+    plain ``"dense"``, as JAX decodes every slot
+    (``models.attention.decode_impl``), and B2 launches once a step for
+    each global slot only.  An int8 KV cache (``kv_quant``) decodes on
+    ``"dense"`` too, as JAX's.  Chunked prefill (``prefill_chunk``) runs
+    its chunks in plain PyTorch, as JAX's ``extend_step`` does."""
     mla = any(s.mixer.startswith("mla") for s in cfg.pattern)
     return "dense" if mla else "kernel"
 
@@ -513,15 +526,18 @@ class Session:
     def _serve_workload(self):
         """The seeded synthetic workload both serve modes share: ragged
         prompt lengths in [8, 48) and ragged ``n_new`` in
-        [max(1, n_new/4), n_new] — the same draws as the JAX package."""
+        [max(1, n_new/4), n_new], prompts (n,) or (n, K) for a K-codebook
+        model — the same draws as the JAX package."""
         spec, cfg = self.spec, self.cfg
         rng = np.random.default_rng(spec.seed)
+        k = cfg.num_codebooks
         reqs = []
         for _ in range(spec.requests):
             n = int(rng.integers(8, 48))
             n_new = int(rng.integers(max(1, spec.n_new // 4),
                                      spec.n_new + 1))
-            prompt = rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+            shape = (n, k) if k else (n,)
+            prompt = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
             reqs.append((prompt, n, n_new))
         return reqs
 

@@ -3,8 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         [--continuous | --static] [--requests 6] [--n-new 16] \\
         [--s-max 256] [--kv-block 16] [--max-kv-blocks 0] \\
-        [--arrival-trace poisson:0.5] [--slo-ms 0] [--report-out PATH] \\
-        [--reduced | --no-reduced] [--device cuda]
+        [--prefill-chunk 0] [--arrival-trace poisson:0.5] [--slo-ms 0] \\
+        [--report-out PATH] [--reduced | --no-reduced] [--device cuda]
 
 The flags are those of ``repro.launch.serve`` plus ``--reduced/
 --no-reduced`` (default reduced, as the JAX launcher hard-codes) and
@@ -41,8 +41,8 @@ def main():
     ap.add_argument("--max-kv-blocks", type=int, default=0,
                     help="KV pool cap; 0 = the run's working set")
     ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help="chunked prefill size; only 0 (whole-prompt) is "
-                         "ported")
+                    help="chunked prefill size (0 = whole-prompt); "
+                         "attention-only stacks, else whole-prompt")
     ap.add_argument("--arrival-trace", default="",
                     help="arrival spec: '' | poisson:RATE | burst:NxGAP")
     ap.add_argument("--slo-ms", type=float, default=0.0,

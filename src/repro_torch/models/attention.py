@@ -24,12 +24,24 @@ kernel, takes one head dim for q, k and v, so ``mla_forward`` refuses
 
 Shapes: x (B, S, D); caches are per-slot dicts of (B, S_max, KV, hd)
 (GQA) or ``ckv`` (B, S_max, kv_lora_rank) and ``k_rope`` (B, S_max,
-qk_rope_head_dim) (MLA).  int8 KV caches and chunked prefill are not
-ported yet (ROADMAP A10) and raise ``NotImplementedError``.
+qk_rope_head_dim) (MLA).  A GQA cache may be int8 (``kv_quant``: per-
+(token, head) fp32 scales ``k_scale``/``v_scale`` (B, S_max, KV) beside
+the int8 ``k``/``v``); its decode dequantizes into the plain dense
+attention, as JAX's does, on every ``impl``.  :func:`gqa_extend` appends
+a chunk of C tokens to a linear cache (chunked prefill), in plain
+PyTorch, as JAX's runs ``"dense"``.
+
+Decode on ``impl="kernel"`` (B2) reads a cache whose slot j holds
+position j: every linear cache, whatever its length.  A sliding-window
+slot's cache that is a ring (shorter than the ``s_max`` it was placed
+for: the static engine folds its prefill into a ring of ``window`` slots
+when ``window < s_max``, and ``cache_specs`` sizes one so) can wrap, and
+decodes on ``"dense"``, as JAX decodes every slot: the layout decides,
+never a failure (:func:`decode_impl`).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -226,11 +238,16 @@ def _qkv(p, x, cfg: ModelConfig):
     return q, k, v
 
 
+def _qkv_at(p, x, positions, cfg: ModelConfig):
+    """q, k, v of x (B,S,D) with rope at ``positions`` (B,S)."""
+    q, k, v = _qkv(p, x, cfg)
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
 def gqa_forward(p, x, positions, cfg: ModelConfig, mixer: str, *,
                 impl="dense", kv_block=1024, q_block=2048):
-    q, k, v = _qkv(p, x, cfg)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv_at(p, x, positions, cfg)
     out = attention(
         q, k, v, positions, positions,
         scale=1.0 / np.sqrt(cfg.head_dim),
@@ -241,35 +258,78 @@ def gqa_forward(p, x, positions, cfg: ModelConfig, mixer: str, *,
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), {"k": k, "v": v}
 
 
+def decode_impl(impl: str, s_cache: int, window: int,
+                s_max: Optional[int]) -> str:
+    """The algorithm a GQA decode runs: ``"dense"`` in place of
+    ``"kernel"`` for a sliding-window slot whose cache is a ring, else
+    ``impl``.  A cache shorter than the ``s_max`` it was placed for is a
+    ring (``window < s_max``): it can wrap, and B2 reads slot j as
+    position j.  A cache ``s_max`` long is linear, even one exactly as
+    long as the window (``s_max == window``).  With ``s_max`` unknown
+    (None) a cache as long as the window is either, and ``"kernel"``
+    refuses it (``ValueError``) rather than guess."""
+    if impl != "kernel" or not window:
+        return impl
+    if s_max is None:
+        if s_cache == window:
+            raise ValueError(
+                f"a sliding-window cache of {s_cache} slots (the window) "
+                "is a ring when placed for s_max > window and linear when "
+                "s_max == window; pass s_max to decode on 'kernel'")
+        return impl
+    return "dense" if s_cache < s_max else impl
+
+
+def quantize_kv(x):
+    """Per-(token, head) int8 quantization, JAX's: x (B,1,KV,hd) -> (int8
+    values, fp32 scales (B,1,KV)), scale ``max|x| / 127 + 1e-8``, values
+    rounded half to even and clipped to +-127."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1) / 127.0 + 1e-8
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def dequantize_kv(q, s, dtype):
+    return (q.float() * s[..., None].float()).to(dtype)
+
+
 def gqa_decode(p, x, pos, cache, cfg: ModelConfig, mixer: str, *,
-               impl="dense"):
+               impl="dense", s_max: Optional[int] = None):
     """x (B,1,D); pos (B,) int current position; cache dict k/v
-    (B,Smax,KV,hd).
+    (B,Smax,KV,hd), int8 with ``k_scale``/``v_scale`` (B,Smax,KV) when
+    quantized.
 
     Unlike JAX, the cache is updated in place (no second copy of the
     working cache per step) and returned.  When the new K/V have a wider
-    dtype than the cache, the cache is widened first, as JAX's one-hot
-    blend (``_cache_write``) promotes it."""
+    dtype than a bf16 or fp32 cache, the cache is widened first, as JAX's
+    one-hot blend (``_cache_write``) promotes it; an int8 cache and its
+    scales keep their dtypes (JAX's scatter write).  ``impl`` is resolved
+    by :func:`decode_impl` from the cache's length and ``s_max``, the
+    length the caches were placed for; a quantized cache decodes on
+    ``"dense"``."""
     _check_impl(impl)
-    if "k_scale" in cache:
-        raise NotImplementedError("int8 KV caches are not ported yet "
-                                  "(ROADMAP A10)")
     B = x.shape[0]
-    q, k, v = _qkv(p, x, cfg)
-    q = rope(q, pos[:, None], cfg.rope_theta)
-    k = rope(k, pos[:, None], cfg.rope_theta)
+    q, k, v = _qkv_at(p, x, pos[:, None], cfg)
     window = _window_for(cfg, mixer)
     s_cache = cache["k"].shape[1]
-    ring = bool(window) and s_cache <= window
-    if ring and impl == "kernel":
-        raise NotImplementedError(
-            "the decode kernel reads linear caches; ring caches for sliding-"
-            "window slots are not ported to it yet (ROADMAP A10)")
     wpos, k_pos = _ring_positions(pos, s_cache, window, B)
+    scale = 1.0 / np.sqrt(cfg.head_dim)
+    if "k_scale" in cache:
+        new = {}
+        for name, val in (("k", k), ("v", v)):
+            vq, vs = quantize_kv(val)
+            new[name] = _cache_write(cache[name], vq, wpos)
+            new[f"{name}_scale"] = _cache_write(cache[f"{name}_scale"], vs,
+                                                wpos)
+        out = dense_attention(
+            q, dequantize_kv(new["k"], new["k_scale"], x.dtype),
+            dequantize_kv(new["v"], new["v_scale"], x.dtype), pos[:, None],
+            k_pos, scale=scale, window=window, cap=cfg.attn_softcap)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"]), new
     ck = _cache_write(cache["k"], k, wpos)
     cv = _cache_write(cache["v"], v, wpos)
-    scale = 1.0 / np.sqrt(cfg.head_dim)
-    if impl == "kernel":
+    if decode_impl(impl, s_cache, window, s_max) == "kernel":
         from repro_torch.kernels import ops as kops
         out = kops.decode_attention(q, ck, cv, pos, scale=scale,
                                     window=window, cap=cfg.attn_softcap)
@@ -277,6 +337,46 @@ def gqa_decode(p, x, pos, cache, cfg: ModelConfig, mixer: str, *,
         out = dense_attention(q, ck, cv, pos[:, None], k_pos, scale=scale,
                               window=window, cap=cfg.attn_softcap)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), {"k": ck, "v": cv}
+
+
+def gqa_extend(p, x, pos0, cache, cfg: ModelConfig, mixer: str):
+    """Chunked-prefill extension (JAX's ``gqa_extend``): append a chunk of
+    C tokens to a *linear* cache.  x (B,C,D); pos0 (B,) absolute position
+    of the chunk's first token; cache dict k/v (B,Smax,KV,hd), written in
+    place at positions pos0 .. pos0 + C - 1 (:func:`_cache_write_chunk`).
+    The chunk attends causally to the cache, which holds every earlier
+    position at its own slot, plus itself, in plain PyTorch
+    (``dense_attention``), as JAX's does."""
+    B, C = x.shape[:2]
+    positions = pos0[:, None] + torch.arange(C, device=x.device)[None]
+    q, k, v = _qkv_at(p, x, positions, cfg)
+    ck = _cache_write_chunk(cache["k"], k, positions)
+    cv = _cache_write_chunk(cache["v"], v, positions)
+    s_cache = ck.shape[1]
+    k_pos = torch.arange(s_cache, device=x.device)[None].expand(B, s_cache)
+    # a cache narrower than the compute dtype (bf16 under fp32) is read as
+    # JAX promotes it: q.k in the wider dtype, the softmax cast to v's
+    dt = torch.promote_types(q.dtype, ck.dtype)
+    out = dense_attention(q.to(dt), ck.to(dt), cv, positions, k_pos,
+                          scale=1.0 / np.sqrt(cfg.head_dim),
+                          window=_window_for(cfg, mixer),
+                          cap=cfg.attn_softcap)
+    return (torch.einsum("bshk,hkd->bsd", out.to(dt), p["wo"]),
+            {"k": ck, "v": cv})
+
+
+def _cache_write_chunk(cache, new, positions):
+    """Write new (B,C,...) into cache (B,Smax,...) at per-example positions
+    (B,C), in place, in the cache's dtype (JAX's ``.at[].set``).  Rows at
+    positions past the cache are dropped, as JAX's ``.at[].set`` drops
+    them: the pad rows of a prompt's last chunk land there when the chunk
+    runs past ``s_max`` (the scheduler keeps every real token within
+    it)."""
+    keep = positions < cache.shape[1]
+    b_idx = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    cache[b_idx.expand_as(positions)[keep], positions[keep].long()] = \
+        new[keep].to(cache.dtype)
+    return cache
 
 
 def _ring_positions(pos, s_cache: int, window: int, batch: int):
@@ -298,10 +398,11 @@ def _ring_positions(pos, s_cache: int, window: int, batch: int):
 
 def _cache_write(cache, new, pos):
     """Write new (B,1,...) into cache (B,Smax,...) at per-example pos (B,),
-    in place, after widening the cache to the promoted dtype of cache and
-    new (a new tensor then), as JAX's one-hot blend does."""
+    in place, after widening a floating cache to the promoted dtype of
+    cache and new (a new tensor then), as JAX's one-hot blend does; an
+    int8 cache keeps its dtype (JAX's scatter write)."""
     dt = torch.promote_types(cache.dtype, new.dtype)
-    if dt != cache.dtype:
+    if dt != cache.dtype and cache.is_floating_point():
         cache = cache.to(dt)
     b_idx = torch.arange(cache.shape[0], device=cache.device)
     cache[b_idx, pos.long()] = new[:, 0].to(cache.dtype)
@@ -411,7 +512,8 @@ def attn_cache_specs(cfg: ModelConfig, mixer: str, layers: int, batch: int,
                      s_max: int, dtype: str = "bfloat16",
                      kv_quant: bool = False):
     """ParamSpec-style descriptors for the per-slot KV cache (stacked
-    layers): GQA's k/v, or MLA's latent ``ckv`` and shared ``k_rope``."""
+    layers): GQA's k/v (``kv_quant``: int8 values and per-(token, head)
+    fp32 scales), or MLA's latent ``ckv`` and shared ``k_rope``."""
     L = (layers, batch)
     la = ("layers", "batch")
     if mixer.startswith("mla"):
@@ -421,13 +523,17 @@ def attn_cache_specs(cfg: ModelConfig, mixer: str, layers: int, batch: int,
             "k_rope": ParamSpec(L + (s_max, cfg.qk_rope_head_dim),
                                 la + ("kv_seq", None), dtype=dtype, init="zeros"),
         }
-    if kv_quant:
-        raise NotImplementedError("int8 KV caches are not ported yet "
-                                  "(ROADMAP A10)")
     KV, hd = cfg.num_kv_heads, cfg.head_dim
-    return {
+    vdt = "int8" if kv_quant else dtype
+    specs = {
         "k": ParamSpec(L + (s_max, KV, hd), la + ("kv_seq", None, None),
-                       dtype=dtype, init="zeros"),
+                       dtype=vdt, init="zeros"),
         "v": ParamSpec(L + (s_max, KV, hd), la + ("kv_seq", None, None),
-                       dtype=dtype, init="zeros"),
+                       dtype=vdt, init="zeros"),
     }
+    if kv_quant:
+        specs["k_scale"] = ParamSpec(L + (s_max, KV), la + ("kv_seq", None),
+                                     dtype="float32", init="zeros")
+        specs["v_scale"] = ParamSpec(L + (s_max, KV), la + ("kv_seq", None),
+                                     dtype="float32", init="zeros")
+    return specs

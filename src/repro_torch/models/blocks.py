@@ -3,19 +3,20 @@ residual, optional post-norms — the port of ``repro.models.blocks``.
 
 ``slot_specs`` gives the parameter shapes of every slot kind (GQA, SWA,
 MLA, Mamba; dense, MoE, and arctic's dense + MoE), so the planner prices
-the full architecture of every arch.  Forward and decode run the slots in
-``PORTED_SLOTS``: GQA, MLA or Mamba-2 mixers with the dense, MoE or
-arctic's dense + MoE MLP (each slot returns its MoE aux loss).  A Mamba
-slot runs ``models/ssm.py``: its SSD core on the CUDA scan
-(``impl="kernel"``) exactly when ``run.attn_impl`` is ``"kernel"``, the
-serving path, else on the plain ``ssd_chunked`` (JAX's ``"auto"``).  The
-sliding-window slot (gemma2) raises ``NotImplementedError`` until its
-slice is ported (ROADMAP A13), and ``models.model.init_params`` refuses
-it before any parameter exists."""
+the full architecture of every arch.  Forward, decode and the cache
+specs run the slots in ``PORTED_SLOTS``, which every arch of the catalog
+uses: GQA (with or without gemma2's sliding window), MLA or Mamba-2
+mixers with the dense, MoE or arctic's dense + MoE MLP (each slot
+returns its MoE aux loss).  A Mamba slot runs ``models/ssm.py``: its SSD
+core on the CUDA scan (``impl="kernel"``) exactly when
+``run.attn_impl`` is ``"kernel"``, the serving path, else on the plain
+``ssd_chunked`` (JAX's ``"auto"``).  :func:`slot_extend` (chunked
+prefill) takes GQA slots only, as JAX's does; ``model.supports_extend``
+keeps other stacks on whole-prompt prefill."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 from repro_torch.configs.base import ModelConfig, SlotSpec
 from repro_torch.models import attention as attn
@@ -23,9 +24,9 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import ParamSpec, rms_norm
 
-PORTED_SLOTS = (("attn", "dense"), ("mla", "dense"), ("mla", "moe"),
-                ("attn", "moe"), ("attn", "moe_dense"), ("mamba", "dense"),
-                ("mamba", "moe"))
+PORTED_SLOTS = (("attn", "dense"), ("swa", "dense"), ("mla", "dense"),
+                ("mla", "moe"), ("attn", "moe"), ("attn", "moe_dense"),
+                ("mamba", "dense"), ("mamba", "moe"))
 REMATS = ("none", "block")
 
 
@@ -50,10 +51,11 @@ class RunConfig:
 
 
 def check_slot(slot: SlotSpec) -> None:
+    """Raise ``ValueError`` for a slot no arch of the catalog uses."""
     if (slot.mixer, slot.mlp) not in PORTED_SLOTS:
-        raise NotImplementedError(
-            f"slot ({slot.mixer!r}, {slot.mlp!r}) is not ported yet; the port "
-            f"runs {PORTED_SLOTS} (ROADMAP A13)")
+        raise ValueError(
+            f"slot ({slot.mixer!r}, {slot.mlp!r}): no config uses it; the "
+            f"port runs {PORTED_SLOTS}")
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +154,9 @@ def slot_forward(p, h, positions, cfg: ModelConfig, slot: SlotSpec,
 
 
 def slot_decode(p, h, pos, cache, cfg: ModelConfig, slot: SlotSpec,
-                run: RunConfig):
+                run: RunConfig, s_max: Optional[int] = None):
+    """``s_max``: the length the caches were placed for (a GQA slot's
+    decode route, ``attention.decode_impl``)."""
     check_slot(slot)
     u = rms_norm(h, p["mixer_norm"], cfg.norm_eps)
     if slot.mixer == "mamba":
@@ -165,7 +169,34 @@ def slot_decode(p, h, pos, cache, cfg: ModelConfig, slot: SlotSpec,
                                        slot.mixer, impl=run.attn_impl)
     else:
         u, new_cache = attn.gqa_decode(p["mixer"], u, pos, cache, cfg,
-                                       slot.mixer, impl=run.attn_impl)
+                                       slot.mixer, impl=run.attn_impl,
+                                       s_max=s_max)
+    if cfg.use_post_norm:
+        u = rms_norm(u, p["mixer_post_norm"], cfg.norm_eps)
+    h, _ = _mlp_residual(p, h + u, cfg, slot, run)
+    return h, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Extend (multi-token cache append: chunked prefill)
+# ---------------------------------------------------------------------------
+
+
+def _mixer_extend(p, h, pos0, cache, cfg: ModelConfig, slot: SlotSpec):
+    if slot.mixer == "mamba" or slot.mixer.startswith("mla"):
+        raise NotImplementedError(
+            f"chunked prefill is attention-only; {slot.mixer!r} slots use "
+            f"whole-prompt prefill (model.supports_extend gates this)")
+    return attn.gqa_extend(p, h, pos0, cache, cfg, slot.mixer)
+
+
+def slot_extend(p, h, pos0, cache, cfg: ModelConfig, slot: SlotSpec,
+                run: RunConfig):
+    """slot_decode's multi-token sibling: h (B,C,D), pos0 (B,) chunk
+    start; the cache is written in place.  Returns (h, cache)."""
+    check_slot(slot)
+    u = rms_norm(h, p["mixer_norm"], cfg.norm_eps)
+    u, new_cache = _mixer_extend(p["mixer"], u, pos0, cache, cfg, slot)
     if cfg.use_post_norm:
         u = rms_norm(u, p["mixer_post_norm"], cfg.norm_eps)
     h, _ = _mlp_residual(p, h + u, cfg, slot, run)

@@ -17,7 +17,8 @@ from typing import Any, Callable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int8": torch.int8}
 
 
 def torch_dtype(name: str) -> torch.dtype:

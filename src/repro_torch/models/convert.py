@@ -5,7 +5,9 @@ The port names every parameter by the JAX path string
 ``wo (L,H,hd,D)``, ``embed (V,D)``; a Mamba mixer's ``w_z (L,D,DI)``,
 ``w_xbc (L,D,DI+2N)``, ``w_dt (L,D,H)``, ``conv_w (L,W,DI+2N)``,
 ``conv_b``, ``dt_bias``, ``a_log``, ``d_skip``, ``gate_norm`` and
-``w_out (L,DI,D)``), so conversion is a copy, name for name.  The caller
+``w_out (L,DI,D)``; a K-codebook model's ``embed (K,V,D)`` and
+``lm_head (K,D,V)``; gemma2's ``mixer_post_norm`` and ``mlp_post_norm``),
+so conversion is a copy, name for name.  The caller
 turns the JAX arrays into numpy first (``jax.tree_util.tree_map(
 np.asarray, params)``), so this module needs no JAX.
 """

@@ -18,13 +18,18 @@ mixer with the dense MLP at ``cfg.d_ff``) runs before the cycles in
 every entry point, and the slots' MoE aux losses are summed over the
 cycles, one at a time in layer order.  Attention and Mamba-2 slots mix
 in one cycle (jamba): their caches sit side by side under ``slots``, a
-Mamba slot's as its recurrent ``state`` and ``conv`` tail.  Chunked
-prefill (``extend_step``), multi-codebook models, image prefixes and the
-sliding-window slot are not ported yet (ROADMAP A10, A11, A13).
+Mamba slot's as its recurrent ``state`` and ``conv`` tail.
+
+A multi-codebook model (musicgen) takes tokens (B, S, K): the embedding
+sums its K tables' rows and the head gives logits (B, S, K, V).  An
+image-prefix model (llava) takes ``batch["image_embeds"]`` (B, n_img,
+D) before the text.  ``extend_step`` appends a chunk of prompt tokens to
+linear caches (chunked prefill), on attention-only stacks
+(``supports_extend``), as JAX's.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -33,17 +38,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig, SlotSpec
 from repro_torch.models.blocks import (RunConfig, check_slot,
                                        slot_cache_specs, slot_decode,
-                                       slot_forward, slot_specs)
+                                       slot_extend, slot_forward, slot_specs)
 from repro_torch.models.common import (ParamSpec, cross_entropy, materialize,
                                        rms_norm, softcap, torch_dtype,
                                        tree_map)
-
-
-def _check_config(cfg: ModelConfig) -> None:
-    if cfg.num_codebooks or cfg.num_image_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-codebook and image-prefix models are not "
-            "ported yet (ROADMAP A11)")
 
 
 def prelude_slot(cfg: ModelConfig) -> SlotSpec:
@@ -52,10 +50,10 @@ def prelude_slot(cfg: ModelConfig) -> SlotSpec:
 
 
 def supports_extend(cfg: ModelConfig) -> bool:
-    """Whether the config could run chunked prefill (``extend_step``, not
-    ported yet): attention-only stacks, as in JAX.  Mamba state folds the
-    whole prefix and MLA decodes in absorbed-latent form, so both take
-    whole-prompt prefill."""
+    """Whether the config runs chunked prefill (``extend_step``):
+    attention-only stacks, as in JAX.  Mamba state folds the whole prefix
+    and MLA decodes in absorbed-latent form, so both take whole-prompt
+    prefill."""
     return all(s.mixer in ("attn", "swa") for s in cfg.pattern)
 
 
@@ -65,9 +63,8 @@ def supports_extend(cfg: ModelConfig) -> bool:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless the port runs every layer of
-    ``cfg`` (forward, decode, caches)."""
-    _check_config(cfg)
+    """Raise unless the port runs every layer of ``cfg`` (forward, decode,
+    caches): every arch of the catalog passes."""
     for slot in cfg.pattern:
         check_slot(slot)
 
@@ -110,7 +107,8 @@ def main_cycles(cfg: ModelConfig) -> int:
 
 def cache_specs(cfg: ModelConfig, batch: int, s_max: int,
                 dtype: str = "bfloat16", kv_quant: bool = False) -> Dict[str, Any]:
-    _check_config(cfg)
+    """Per-slot cache descriptors; ``kv_quant``: int8 GQA k/v with fp32
+    per-(token, head) scales (MLA and Mamba slots keep ``dtype``)."""
     c: Dict[str, Any] = {}
     if cfg.first_k_dense:
         c["prelude"] = slot_cache_specs(cfg, prelude_slot(cfg),
@@ -131,7 +129,13 @@ def cache_specs(cfg: ModelConfig, batch: int, s_max: int,
 
 
 def embed_tokens(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    h = params["embed"][batch["tokens"]]
+    tokens = batch["tokens"]
+    if cfg.num_codebooks:  # (B,S,K) -> sum_k embed_k[token_k], in k order
+        h = params["embed"][0][tokens[..., 0]]
+        for k in range(1, cfg.num_codebooks):
+            h = h + params["embed"][k][tokens[..., k]]
+    else:
+        h = params["embed"][tokens]
     if "image_embeds" in batch:  # (B, n_img, D) prefix before the text
         h = torch.cat([batch["image_embeds"].to(h.dtype), h], dim=1)
     if cfg.scale_embed:
@@ -140,8 +144,14 @@ def embed_tokens(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
 
 
 def lm_logits(params, h, cfg: ModelConfig):
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = h @ w
+    """(B,S,V) logits, or (B,S,K,V) for a K-codebook model."""
+    if cfg.num_codebooks:
+        w = (params["embed"].transpose(1, 2) if cfg.tie_embeddings
+             else params["lm_head"])
+        logits = torch.einsum("bsd,kdv->bskv", h, w)
+    else:
+        w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        logits = h @ w
     if cfg.padded_vocab != cfg.vocab_size:  # mask padding columns
         valid = torch.arange(cfg.padded_vocab, device=h.device) < cfg.vocab_size
         logits = logits.masked_fill(~valid, -1e30)
@@ -264,7 +274,8 @@ def masked_loss(logits, labels, aux, aux_weight: float = AUX_WEIGHT):
 
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             run: RunConfig, with_cache: bool = False):
-    """Full-sequence forward over ``batch["tokens"]`` (B,S).  Returns
+    """Full-sequence forward over ``batch["tokens"]`` (B,S) or (B,S,K),
+    after ``batch["image_embeds"]`` (B,n_img,D) where given.  Returns
     (logits, caches, aux_loss); caches are stacked (cycles, B, S, ...) per
     slot (and (first_k_dense, B, S, ...) under ``prelude``)."""
     check_ported(cfg)
@@ -313,21 +324,29 @@ def loss_fn(params, batch, cfg: ModelConfig, run: RunConfig,
 
 
 def decode_step(params, tokens: torch.Tensor, pos: torch.Tensor, caches,
-                cfg: ModelConfig, run: RunConfig):
+                cfg: ModelConfig, run: RunConfig,
+                s_max: Optional[int] = None):
     """One decoding step.
 
-    tokens (B,1) int; pos (B,) int absolute positions; caches as produced
-    by ``cache_specs``.  Returns (logits, new_caches).  The caches are
-    written in place (each attention layer's new entries at ``pos``, each
-    Mamba layer's whole state and conv tail); a cache whose
+    tokens (B,1) or (B,1,K) int; pos (B,) int absolute positions; caches
+    as produced by ``cache_specs`` or placed by the engines, for
+    ``s_max`` positions: a sliding-window slot's cache shorter than that
+    is a ring and decodes on ``"dense"`` where ``run.attn_impl`` is
+    ``"kernel"`` (``attention.decode_impl``; None: the caller does not
+    say).  Returns (logits, new_caches).  The
+    caches are written in place (each attention layer's new entries at
+    ``pos``, each Mamba layer's whole state and conv tail); a cache whose
     dtype is narrower than the compute dtype is first widened, the dtype
     JAX's one-hot cache write promotes it to, so the returned tree may
-    hold new tensors."""
+    hold new tensors.  An int8 cache and its scales keep their dtypes, as
+    JAX's scatter write keeps them."""
     check_ported(cfg)
     params = cast_params(params, cfg)
     h = embed_tokens(params, {"tokens": tokens}, cfg)
 
     def widen(tree):
+        if "k_scale" in tree:
+            return dict(tree)
         return {k: c.to(torch.promote_types(c.dtype, h.dtype))
                 for k, c in tree.items()}
 
@@ -340,11 +359,42 @@ def decode_step(params, tokens: torch.Tensor, pos: torch.Tensor, caches,
         pre = prelude_slot(cfg)
         for i in range(cfg.first_k_dense):
             h, _ = slot_decode(_layer(params["prelude"], i), h, pos,
-                               _layer(new["prelude"], i), cfg, pre, run)
+                               _layer(new["prelude"], i), cfg, pre, run,
+                               s_max)
     for i in range(main_cycles(cfg)):
         for n, slot in zip(slot_names, cfg.pattern):
             h, _ = slot_decode(_layer(params["slots"][n], i), h, pos,
-                               _layer(new["slots"][n], i), cfg, slot, run)
+                               _layer(new["slots"][n], i), cfg, slot, run,
+                               s_max)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(params, h, cfg)
     return logits, new
+
+
+def extend_step(params, tokens: torch.Tensor, pos0: torch.Tensor, caches,
+                cfg: ModelConfig, run: RunConfig):
+    """Chunked prefill (JAX's ``extend_step``): append C prompt tokens to
+    linear caches in one call.
+
+    tokens (B,C) or (B,C,K) int; pos0 (B,) absolute position of the
+    chunk's first token; caches linear (non-ring), written in place.
+    Returns (logits (B,C,V), caches): logits[:, i] is the next-token
+    distribution after absolute position pos0 + i, what a whole-prompt
+    ``forward`` gives there."""
+    if not supports_extend(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: chunked prefill needs an attention-only pattern")
+    check_ported(cfg)
+    params = cast_params(params, cfg)
+    h = embed_tokens(params, {"tokens": tokens}, cfg)
+    if cfg.first_k_dense:
+        pre = prelude_slot(cfg)
+        for i in range(cfg.first_k_dense):
+            h, _ = slot_extend(_layer(params["prelude"], i), h, pos0,
+                               _layer(caches["prelude"], i), cfg, pre, run)
+    for i in range(main_cycles(cfg)):
+        for j, slot in enumerate(cfg.pattern):
+            n = f"slot{j}"
+            h, _ = slot_extend(_layer(params["slots"][n], i), h, pos0,
+                               _layer(caches["slots"][n], i), cfg, slot, run)
+    return head_logits(params, h, cfg), caches

@@ -20,11 +20,22 @@ Design notes:
   admission rebuilds the working cache *from* the pools
   (``PagedKVCache.gather_batch``).  Pools and working cache live on the
   device.
-* Prefill runs per request at batch 1, whole-prompt, padded to a
-  power-of-two bucket, as JAX's: a Mamba slot's state and conv tail take
+* Prefill runs per request at batch 1: whole-prompt, padded to a
+  power-of-two bucket, as JAX's (a Mamba slot's state and conv tail take
   in the pad tokens there, so the tokens are JAX's, not those of the
-  prompt alone (ROADMAP, faults in the reference).  Chunked prefill
-  (``prefill_chunk > 0``) is not ported yet and raises.
+  prompt alone: ROADMAP, faults in the reference), or chunked
+  (``prefill_chunk > 0``: ``model.extend_step``, one chunk a scheduler
+  tick, so a long prompt does not stall the admitted rows).  Chunked
+  prefill needs an attention-only stack (``model.supports_extend``);
+  other configs take whole-prompt prefill, as JAX's do.  A request's
+  chunked cache is linear at ``s_max`` in every slot, the pool's layout
+  (``empty_caches``): a sliding-window slot keeps every position and
+  ``gqa_extend``'s mask applies the window.  (JAX's holds a sliding-
+  window slot's ``min(s_max, window)`` positions, drops the positions
+  past it and fails copying the short cache into the pool: ROADMAP,
+  faults in the reference.)
+* Prompts are (L,) or, for a K-codebook model, (L, K); each request's
+  tokens come back (n_new,) or (n_new, K).
 * Dummy rows decode a masked token-0 at their stale position; their cache
   writes are never committed to the pools and vanish at the next
   admission's regather.
@@ -40,7 +51,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.models.blocks import RunConfig
-from repro_torch.models.common import resolve_device
+from repro_torch.models.common import resolve_device, tree_map
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.obs.trace import monotonic
 from repro_torch.serve.engine import greedy, place_prefill_cache
@@ -58,12 +69,13 @@ def _bucket(n: int, cap: int) -> int:
 @dataclass
 class ServeRequest:
     rid: int
-    prompt: np.ndarray  # (L,) int32
+    prompt: np.ndarray  # (L,) or (L, K) int32
     n_new: int
     arrival_step: int = 0
     # runtime state
     tokens: List[np.ndarray] = field(default_factory=list)
-    caches: Any = None  # B=1 private cache between prefill and activation
+    prefill_done: int = 0
+    caches: Any = None  # B=1 private cache during (chunked) prefill
     t_arrive: float = 0.0
     t_first: float = 0.0
     t_finish: float = 0.0
@@ -75,21 +87,21 @@ class ServeRequest:
 
 class ContinuousEngine:
     """Model-level primitives for the continuous scheduler: per-request
-    whole-prompt prefill (batch 1) and one fixed-width decode step."""
+    prefill (whole or chunked, batch 1) and one fixed-width decode step.
+    ``prefill_chunk`` is kept only where ``model.supports_extend`` holds
+    (0 otherwise: whole-prompt prefill, as JAX's)."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, params=None, *,
                  s_max: int = 512, max_batch: int = 4,
                  prefill_chunk: int = 0, seed: int = 0, device="cuda",
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None):
-        if prefill_chunk:
-            raise NotImplementedError(
-                "chunked prefill (extend_step) is not ported yet (ROADMAP "
-                "A10); use prefill_chunk=0")
         self.cfg = cfg
         self.run = run
         self.s_max = s_max
         self.max_batch = max_batch
+        self.prefill_chunk = (prefill_chunk if prefill_chunk > 0
+                              and M.supports_extend(cfg) else 0)
         self.device = resolve_device(device)
         self.tracer = (tracer if tracer is not None and tracer.enabled
                        else Tracer(enabled=True))
@@ -98,26 +110,60 @@ class ContinuousEngine:
             params = M.init_params(cfg, seed, self.device)
         self.params = M.cast_params(params, cfg)
 
+    def empty_caches(self, batch: int):
+        """Zero bf16 linear caches of ``s_max`` positions: the shapes of
+        ``model.cache_specs`` with a sliding-window slot's sequence axis
+        widened from min(s_max, window) to s_max."""
+        specs = M.cache_specs(self.cfg, batch=batch, s_max=self.s_max)
+        return tree_map(lambda sp: torch.zeros(
+            sp.shape[:2] + (self.s_max,) + sp.shape[3:],
+            dtype=torch.bfloat16, device=self.device), specs)
+
+    def _prompt(self, req: ServeRequest, lo: int, n: int, width: int):
+        """(1, width[, K]) int32 on the device: prompt[lo:lo + n], zeros
+        after."""
+        toks = torch.zeros((1, width) + req.prompt.shape[1:],
+                           dtype=torch.int32, device=self.device)
+        toks[0, :n] = torch.as_tensor(req.prompt[lo:lo + n],
+                                      device=self.device)
+        return toks
+
     def prefill_whole(self, req: ServeRequest):
         """Whole-prompt prefill at batch 1: fills req.caches (linear,
         s_max, bf16) and returns the first sampled token."""
         L = req.length
-        toks = torch.zeros((1, _bucket(L, self.s_max)), dtype=torch.int32,
-                           device=self.device)
-        toks[0, :L] = torch.as_tensor(req.prompt, device=self.device)
+        toks = self._prompt(req, 0, L, _bucket(L, self.s_max))
         logits, caches, _ = M.forward(self.params, {"tokens": toks}, self.cfg,
                                       self.run, with_cache=True)
         req.caches = place_prefill_cache(self.cfg, caches, self.s_max, L,
                                          ring=False)
+        req.prefill_done = L
         return greedy(logits[:, L - 1], self.metrics)[0]
 
+    def prefill_chunk_step(self, req: ServeRequest):
+        """Advance a chunked prefill by one chunk.  Returns the first
+        sampled token once the prompt is complete, else None."""
+        C = self.prefill_chunk
+        if req.caches is None:
+            req.caches = self.empty_caches(1)
+        L, done = req.length, req.prefill_done
+        n = min(C, L - done)
+        pos0 = torch.full((1,), done, dtype=torch.int32, device=self.device)
+        logits, req.caches = M.extend_step(
+            self.params, self._prompt(req, done, n, C), pos0, req.caches,
+            self.cfg, self.run)
+        req.prefill_done = done + n
+        if req.prefill_done >= L:
+            return greedy(logits[:, n - 1], self.metrics)[0]
+        return None
+
     def decode(self, tokens: np.ndarray, pos: np.ndarray, caches):
-        """One step across all rows. tokens (B,) pos (B,) — returns
-        (sampled (B,), new_caches)."""
+        """One step across all rows. tokens (B,[K]) pos (B,) — returns
+        (sampled (B,[K]), new_caches)."""
         tk = torch.as_tensor(tokens, device=self.device)[:, None]
         p = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
         logits, caches = M.decode_step(self.params, tk, p, caches, self.cfg,
-                                       self.run)
+                                       self.run, self.s_max)
         return greedy(logits[:, -1], self.metrics), caches
 
 
@@ -158,14 +204,15 @@ class ContinuousScheduler:
             return {}
 
         rows: List[Optional[ServeRequest]] = [None] * B  # active rows
+        prefilling: List[ServeRequest] = []  # admitted, prompt in flight
         ready: List[ServeRequest] = []
         results: Dict[int, np.ndarray] = {}
-        tokens = np.zeros((B,), np.int32)
+        tokens = np.zeros((B,) + pending[0].prompt.shape[1:], np.int32)
         pos = np.zeros((B,), np.int32)
         remaining = np.full((B,), -1, np.int64)  # -1 = row not decoding
         state = {"retired": 0, "dirty": False}
         clock = 0
-        engine_steps = work_slots = 0
+        engine_steps = work_slots = prefill_chunks = 0
         caches = None
 
         def retire(req: ServeRequest, row: int) -> None:
@@ -210,7 +257,7 @@ class ContinuousScheduler:
                         f"request {req.rid}: prompt+n_new={need} exceeds "
                         f"s_max={eng.s_max}")
                 if not kv.can_admit(req.prompt, need):
-                    if not any(rows):
+                    if not any(rows) and not prefilling:
                         raise RuntimeError(
                             f"request {req.rid} cannot fit in an empty KV "
                             f"pool ({kv.alloc.n_blocks} blocks)")
@@ -219,16 +266,32 @@ class ContinuousScheduler:
                 kv.admit(req.rid, req.prompt, need)
                 row = rows.index(None)
                 rows[row] = req
-                remaining[row] = -1
-                with eng.tracer.span("prefill", rid=req.rid,
-                                     prompt_len=req.length) as sp:
-                    first = eng.prefill_whole(req)
-                m.observe("serve/prefill_s", sp.elapsed_s)
-                activate(req, row, first)
+                remaining[row] = -1  # prefilling sentinel: not decoding yet
+                if eng.prefill_chunk and req.length > eng.prefill_chunk:
+                    prefilling.append(req)
+                else:
+                    with eng.tracer.span("prefill", rid=req.rid,
+                                         prompt_len=req.length) as sp:
+                        first = eng.prefill_whole(req)
+                    m.observe("serve/prefill_s", sp.elapsed_s)
+                    activate(req, row, first)
+
+            # one prefill chunk per tick: long prompts interleave with decode
+            if prefilling:
+                req = prefilling[0]
+                with eng.tracer.span("prefill_chunk", rid=req.rid,
+                                     done=req.prefill_done) as sp:
+                    first = eng.prefill_chunk_step(req)
+                m.observe("serve/prefill_chunk_s", sp.elapsed_s)
+                prefill_chunks += 1
+                if first is not None:
+                    prefilling.pop(0)
+                    m.observe("serve/prefill_s", sp.elapsed_s)
+                    activate(req, rows.index(req), first)
 
             active = [i for i in range(B) if remaining[i] > 0]
             if not active:
-                if not ready and pending:
+                if not prefilling and not ready and pending:
                     clock = pending[0].arrival_step  # idle fast-forward
                 else:
                     clock += 1
@@ -269,7 +332,7 @@ class ContinuousScheduler:
                       "decode_token_steps": work_slots + total,
                       "wasted_decode_steps": work_slots + total - delivered,
                       "idle_row_slots": engine_steps * B - work_slots,
-                      "prefill_chunks": 0,
+                      "prefill_chunks": prefill_chunks,
                       "delivered_tokens": delivered,
                       "virtual_steps": clock,
                       "requests": total}

@@ -9,8 +9,15 @@ loop is one step per token across the whole batch.  ``prefill`` and
 ``decode`` are tracer spans whose wall clocks ARE the ``GenResult``
 timings; each span ends after a host sync (the sampled tokens are copied
 to the host inside it), so on the card it times the device work, not its
-enqueue.  Sampling is greedy (the JAX engine's
-``greedy=False`` categorical sampling is not ported).
+enqueue.
+
+Prompts are (B, S) or, for a K-codebook model, (B, S, K); an image-
+prefix model takes ``image_embeds`` (B, n_img, D), and its positions
+start after the prefix, as JAX's.  Sampling is greedy by default;
+``greedy=False`` draws each token from ``softmax(logits)`` with a
+``torch.Generator`` on the engine's device, seeded from ``seed`` and the
+step (JAX folds its key per step; the draws cannot equal JAX's PRNG).
+A codebook model takes the argmax per codebook either way, as JAX's.
 """
 from __future__ import annotations
 
@@ -78,17 +85,45 @@ def place_prefill_cache(cfg: ModelConfig, caches, s_max: int, prompt_len: int,
 def greedy(logits: torch.Tensor, metrics: MetricsRegistry) -> np.ndarray:
     """Argmax over the vocab, copied to the host (the span-ending sync).
     Rows whose logits hold a NaN or inf are counted in the same copy, as
-    ``serve/nonfinite_logit_rows``."""
-    ids = torch.argmax(logits, dim=-1).to(torch.int32)
-    bad = (~torch.isfinite(logits)).any(dim=-1).to(torch.int32)
-    host = torch.stack([ids, bad]).cpu().numpy()
-    metrics.inc("serve/nonfinite_logit_rows", int(host[1].sum()))
-    return host[0]
+    ``serve/nonfinite_logit_rows``.  logits (B, V) -> (B,), or (B, K, V)
+    -> (B, K)."""
+    return _to_host(torch.argmax(logits, dim=-1), logits, metrics)
+
+
+def sample(logits: torch.Tensor, metrics: MetricsRegistry,
+           generator: Optional[torch.Generator] = None) -> np.ndarray:
+    """:func:`greedy` without a generator; with one, a draw from
+    ``softmax(logits)`` (fp32) per row, for (B, V) logits only.  A NaN
+    logit has probability 0; a row with no finite logit draws token 0
+    (it is counted as non-finite either way)."""
+    if generator is None or logits.dim() > 2:
+        return greedy(logits, metrics)
+    lg = torch.nan_to_num(logits.float(), nan=float("-inf"))
+    probs = torch.softmax(lg, dim=-1).nan_to_num(0.0)
+    probs[:, 0] += (probs.sum(dim=-1) == 0).float()
+    ids = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return _to_host(ids, logits, metrics)
+
+
+def _to_host(ids: torch.Tensor, logits: torch.Tensor,
+             metrics: MetricsRegistry) -> np.ndarray:
+    bad = (~torch.isfinite(logits)).flatten(1).any(dim=1)
+    n = ids.numel()
+    host = torch.cat([ids.reshape(-1).to(torch.int32),
+                      bad.to(torch.int32)]).cpu().numpy()
+    metrics.inc("serve/nonfinite_logit_rows", int(host[n:].sum()))
+    return host[:n].reshape(tuple(ids.shape))
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The sampling generator's seed at ``step`` (0: the prefill's token):
+    ``seed`` folded with the step, as JAX folds its key."""
+    return (int(seed) * 1_000_003 + int(step)) % (2 ** 63)
 
 
 @dataclass
 class GenResult:
-    tokens: np.ndarray  # (B, n_new)
+    tokens: np.ndarray  # (B, n_new[, K])
     prefill_s: float
     decode_s: float
     tokens_per_s: float
@@ -121,31 +156,50 @@ class Engine:
         self.params = M.cast_params(params, cfg)
 
     def generate(self, prompts: np.ndarray, n_new: int, *,
-                 lengths: Optional[np.ndarray] = None) -> GenResult:
-        """prompts (B, S_prompt) right-padded; lengths (B,) true lens."""
+                 greedy: bool = True,
+                 lengths: Optional[np.ndarray] = None,
+                 image_embeds: Optional[np.ndarray] = None,
+                 seed: int = 0) -> GenResult:
+        """prompts (B, S_prompt[, K]) right-padded; lengths (B,) true lens;
+        image_embeds (B, n_img, D) before each prompt.  ``greedy=False``
+        samples (module docstring)."""
         cfg, dev = self.cfg, self.device
         B, S_prompt = prompts.shape[:2]
         if lengths is None:
             lengths = np.full((B,), S_prompt, np.int32)
+        n_img = cfg.num_image_tokens if image_embeds is not None else 0
+        gen = None
+        if not greedy:
+            gen = torch.Generator(device=dev)
+
+        def pick(logits, step):
+            if gen is not None:
+                gen.manual_seed(step_seed(seed, step))
+            return sample(logits, self.metrics, gen)
 
         with self.tracer.span("prefill", batch=B, prompt_len=S_prompt) as sp_p:
-            toks = torch.as_tensor(prompts, device=dev)
-            logits, caches, _ = M.forward(self.params, {"tokens": toks}, cfg,
-                                          self.run, with_cache=True)
-            caches = place_prefill_cache(cfg, caches, self.s_max, S_prompt)
+            batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+            if image_embeds is not None:
+                batch["image_embeds"] = torch.as_tensor(image_embeds,
+                                                        device=dev)
+            logits, caches, _ = M.forward(self.params, batch, cfg, self.run,
+                                          with_cache=True)
+            caches = place_prefill_cache(cfg, caches, self.s_max,
+                                         S_prompt + n_img)
             # next-token logits at each example's true last position
-            idx = torch.as_tensor(lengths - 1, device=dev, dtype=torch.long)
-            tok = greedy(logits[torch.arange(B, device=dev), idx], self.metrics)
+            idx = torch.as_tensor(lengths - 1 + n_img, device=dev,
+                                  dtype=torch.long)
+            tok = pick(logits[torch.arange(B, device=dev), idx], 0)
         t_prefill = sp_p.elapsed_s
 
-        pos = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+        pos = torch.as_tensor(lengths + n_img, dtype=torch.int32, device=dev)
         out = [tok]
         with self.tracer.span("decode", batch=B, n_new=n_new) as sp_d:
-            for _ in range(n_new - 1):
+            for i in range(n_new - 1):
                 tk = torch.as_tensor(tok, device=dev)[:, None]
                 logits, caches = M.decode_step(self.params, tk, pos, caches,
-                                               cfg, self.run)
-                tok = greedy(logits[:, -1], self.metrics)
+                                               cfg, self.run, self.s_max)
+                tok = pick(logits[:, -1], i + 1)
                 out.append(tok)
                 pos = pos + 1
         t_decode = sp_d.elapsed_s
@@ -206,7 +260,9 @@ class BatchScheduler:
             self.pending = self.pending[self.max_batch:]
             max_len = max(r.prompt.shape[0] for r in batch)
             n_new = max(r.n_new for r in batch)
-            prompts = np.zeros((len(batch), max_len), np.int32)
+            k = self.engine.cfg.num_codebooks
+            shape = (len(batch), max_len) + ((k,) if k else ())
+            prompts = np.zeros(shape, np.int32)
             lengths = np.zeros((len(batch),), np.int32)
             for i, r in enumerate(batch):
                 prompts[i, : r.prompt.shape[0]] = r.prompt

@@ -115,6 +115,18 @@ class BlockAllocator:
         return self._refs.get(bid, 0)
 
 
+def _token_key(tokens) -> Tuple:
+    """A prompt as a tuple of positions: ints for (L,) tokens, K-tuples for
+    a K-codebook prompt (L, K), so a block's prefix key covers whole
+    positions.  JAX flattens (L, K) into L * K ints, whose prefix of a
+    block's length covers only 1/K of its positions (ROADMAP, faults in
+    the reference); for (L,) prompts both are the same."""
+    arr = np.asarray(tokens)
+    if arr.ndim == 2:
+        return tuple(tuple(int(t) for t in row) for row in arr)
+    return tuple(int(t) for t in arr.reshape(-1))
+
+
 def _leaf(tree, path: Tuple[str, ...]):
     for k in path:
         tree = tree[k]
@@ -182,7 +194,7 @@ class PagedKVCache:
     def can_admit(self, tokens: np.ndarray, total_len: int) -> bool:
         if not self._seq_paths:
             return True  # recurrent state only: no block to reserve
-        toks = tuple(int(t) for t in np.asarray(tokens).reshape(-1))
+        toks = _token_key(tokens)
         need = sum(1 for k in self._share_keys(toks, total_len)
                    if k is None or self.alloc.lookup(k) is None)
         return self.alloc.can_alloc(need)
@@ -190,7 +202,7 @@ class PagedKVCache:
     def admit(self, rid: int, tokens: np.ndarray, total_len: int) -> None:
         """Reserve the request's whole block table (prompt + all decode
         positions) up front — admitted requests can never OOM mid-flight."""
-        toks = tuple(int(t) for t in np.asarray(tokens).reshape(-1))
+        toks = _token_key(tokens)
         table: List[int] = []
         private: List[bool] = []
         try:

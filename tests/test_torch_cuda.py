@@ -651,3 +651,82 @@ def test_moe_prelude_pipeline_on_one_card_bitwise(cuda):
     want = dict(tree_items(dp.params[0]))
     for path, got in tree_items(pt.params):
         assert torch.equal(got, want[path]), path
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,KV,D,window,cap,start", [
+    (32, 16, 128, 64, 50.0, 0),   # gemma2's swa slot (window reduced)
+    (8, 8, 64, 0, 0.0, 0),        # musicgen: MHA, G = 1
+    (56, 8, 128, 0, 0.0, 40)])    # llava: G = 7, decode after a prefix
+def test_last_three_archs_kernel_shapes(cuda, H, KV, D, window, cap, start):
+    """B1 and B2 at the head shapes gemma2, musicgen and llava give them
+    (chip_smoke.py phase 17 runs them at full size) against their plain
+    versions, decode rows at positions past ``start``."""
+    g = torch.Generator(device=cuda).manual_seed(H + D)
+    B, S = 2, 150
+    q, k, v = (torch.randn(B, S, n, D, generator=g, device=cuda).to(
+        torch.bfloat16) for n in (H, KV, KV))
+    scale = 1.0 / np.sqrt(D)
+    got = ops.flash_attention(q, k, v, scale=scale, window=window, cap=cap)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), scale=scale,
+                                   window=window, cap=cap).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    pos = torch.tensor([start + 7, S - 1], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q[:, :1], k, v, pos, scale=scale,
+                               window=window, cap=cap)
+    want = ref.decode_attention_ref(q[:, 0], k.transpose(1, 2),
+                                    v.transpose(1, 2), pos, scale=scale,
+                                    window=window, cap=cap)
+    torch.testing.assert_close(got[:, 0].float(), want.float(), **TOL)
+
+
+@pytest.mark.gpu
+def test_gemma2_serving_options_on_card(cuda):
+    """Reduced gemma2 (window 64) on the card: a 70-token prompt at s_max
+    96 through the static engine runs B1 on every layer and B2 on the
+    global slot only (the swa ring wraps: "dense"), and at s_max 64 ==
+    window B2 on both (the cache is linear); a sampled generate
+    repeats under one seed; an int8 decode step matches the CPU's."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.models import model as M
+    from repro_torch.models.blocks import RunConfig
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve.engine import Engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("gemma2-27b").reduced()
+    eng = Engine(cfg, RunConfig(attn_impl="kernel"), s_max=96, device=cuda)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 70))
+    fa_k.flash_attention.launches = dec_k.decode_attention.launches = 0
+    res = eng.generate(prompt, 5)
+    torch.cuda.synchronize()
+    assert fa_k.flash_attention.launches == 2
+    assert dec_k.decode_attention.launches == 4  # global slot x 4 steps
+    assert res.tokens.shape == (1, 5)
+    # at s_max == window the swa cache is linear: B2 on both slots
+    lin = Engine(cfg, RunConfig(attn_impl="kernel"), s_max=64,
+                 params=eng.params, device=cuda)
+    dec_k.decode_attention.launches = 0
+    lin.generate(prompt[:, :40], 5)
+    torch.cuda.synchronize()
+    assert dec_k.decode_attention.launches == 2 * 4
+    a = eng.generate(prompt, 5, greedy=False, seed=3).tokens
+    np.testing.assert_array_equal(a, eng.generate(prompt, 5, greedy=False,
+                                                  seed=3).tokens)
+    c32 = cfg.replace(dtype="float32")
+    p_cpu = M.init_params(c32, 0, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 1))
+    out = []
+    for dev, p in ((cuda, tree_map(lambda t: t.to(cuda), p_cpu)),
+                   (torch.device("cpu"), p_cpu)):
+        caches = tree_map(lambda sp: torch.zeros(sp.shape, dtype={
+            "int8": torch.int8, "float32": torch.float32}[sp.dtype],
+            device=dev), M.cache_specs(c32, 2, 48, kv_quant=True))
+        lg, _ = M.decode_step(p, toks.to(dev), torch.zeros(
+            2, dtype=torch.int32, device=dev), caches, c32,
+            RunConfig(attn_impl="kernel"))
+        out.append(lg.float().cpu())
+    torch.testing.assert_close(out[0], out[1], **TOL)

@@ -179,8 +179,7 @@ def test_mamba_slots_are_ported_and_dispatch():
         assert tblocks._ssm_impl(tblocks.RunConfig(attn_impl=attn_impl)) \
             == want
     for arch in ("musicgen-large", "llava-next-34b", "gemma2-27b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A1[13]"):
-            TM.check_ported(get_config(arch))
+        TM.check_ported(get_config(arch))  # the last three archs: ported
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -407,8 +406,9 @@ def test_pure_ssm_long_prompts_match_jax_generate():
 def test_paged_pool_keeps_state_per_request():
     """The state leaves through the pool: write_prefill stores each
     request's bf16 state, commit_token its new state (rounded to bf16, as
-    JAX's gather rounds it), gather_batch zero-fills a free row; and the
-    chunked prefill stays refused (``supports_extend`` is false)."""
+    JAX's gather rounds it), gather_batch zero-fills a free row; and a
+    chunked prefill is whole-prompt here (``supports_extend`` is false),
+    as in JAX's engine."""
     _, tcfg = _cfgs("mamba2-780m")
     kv = PagedKVCache(tcfg, block_size=4, n_blocks=2, s_max=16,
                       device="cpu")
@@ -433,10 +433,16 @@ def test_paged_pool_keeps_state_per_request():
                        work["slots"]["slot0"]["conv"][:, 2].to(
                            torch.bfloat16))
     assert kv.stats()["block_bytes"] == 0 and kv.alloc.n_used == 0
-    with pytest.raises(NotImplementedError, match="A10"):
-        ContinuousEngine(tcfg, tblocks.RunConfig(), _np_params_t(tcfg),
-                         prefill_chunk=8, device="cpu")
+    # chunked prefill is attention-only: a Mamba stack quietly takes
+    # whole-prompt prefill, as JAX's engine does
+    eng = ContinuousEngine(tcfg, tblocks.RunConfig(), _np_params_t(tcfg),
+                           prefill_chunk=8, device="cpu")
+    assert eng.prefill_chunk == 0
     assert not TM.supports_extend(tcfg)
+    with pytest.raises(NotImplementedError, match="attention-only"):
+        TM.extend_step(eng.params, torch.zeros(1, 8, dtype=torch.int32),
+                       torch.zeros(1, dtype=torch.int32),
+                       eng.empty_caches(1), tcfg, tblocks.RunConfig())
 
 
 def _np_params_t(tcfg):

@@ -262,18 +262,26 @@ def test_place_prefill_cache_pads_and_casts(params):
 
 
 def test_unported_paths_raise():
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError):
-        tattn.attn_cache_specs(tcfg, "attn", 1, 1, 8, kv_quant=True)
-    # the specs of every arch exist (the planner prices them); a model the
-    # port cannot run (multi-codebook, image prefix, the sliding-window
-    # slot) is refused before any parameter is materialized
+    """The paths once refused here run now: int8 caches take JAX's specs,
+    the three last archs (multi-codebook, image prefix, the sliding-window
+    slot) materialize, and a ring cache (shorter than the s_max it was
+    placed for) on ``"kernel"`` decodes on the plain path (the layout
+    rule, ``attention.decode_impl``).  What stays
+    refused: an unknown impl, MLA on the kernels."""
+    jcfg, tcfg = _cfgs()
+    got = tattn.attn_cache_specs(tcfg, "attn", 1, 1, 8, kv_quant=True)
+    want = jattn.attn_cache_specs(jcfg, "attn", 1, 1, 8, kv_quant=True)
+    assert set(got) == set(want) == {"k", "v", "k_scale", "v_scale"}
+    for name, sp in got.items():
+        assert (sp.shape, sp.axes, sp.dtype) == (want[name].shape,
+                                                 want[name].axes,
+                                                 want[name].dtype)
     for arch, leaf in (("musicgen-large", "wq"), ("llava-next-34b", "wq"),
                        ("gemma2-27b", "wq")):
         cfg = get_config(arch).reduced()
         assert leaf in TM.model_specs(cfg)["slots"]["slot0"]["mixer"]
-        with pytest.raises(NotImplementedError):
-            TM.init_params(cfg, 0, "cpu")
+        params = TM.init_params(cfg, 0, "cpu")
+        assert params["embed"].shape == TM.model_specs(cfg)["embed"].shape
     with pytest.raises(ValueError):
         tattn.attention(None, None, None, None, None, scale=1.0, impl="pallas")
     # MLA's q/k and v head dims differ: no kernel path, and no fallback
@@ -288,10 +296,28 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="head dim"):
         tattn.mla_decode(layer, torch.zeros(1, 1, mla.d_model),
                          torch.tensor([3]), cache, mla, "mla", impl="kernel")
-    swa = tcfg.replace(attn_window_override=8)
-    cache = {"k": torch.zeros(1, 8, 2, 64), "v": torch.zeros(1, 8, 2, 64)}
+    swa = tcfg.replace(attn_window_override=8, dtype="float32")
     mix = tcommon.materialize(tattn.gqa_specs(swa, 1), 0, "cpu")
-    with pytest.raises(NotImplementedError):  # ring cache + decode kernel
-        tattn.gqa_decode(tcommon.tree_map(lambda a: a[0], mix),
-                         torch.zeros(1, 1, swa.d_model),
-                         torch.tensor([3]), cache, swa, "attn", impl="kernel")
+    layer = tcommon.tree_map(lambda a: a[0], mix)
+    x = torch.randn(1, 1, swa.d_model, generator=torch.Generator().manual_seed(0))
+    # (cache length, s_max placed for): a ring is shorter than its s_max
+    for s_cache, s_max, want in ((8, 16, "dense"), (8, 8, "kernel"),
+                                 (4, 4, "kernel"), (16, 16, "kernel"),
+                                 (4, None, "kernel"), (16, None, "kernel")):
+        assert tattn.decode_impl("kernel", s_cache, 8, s_max) == want
+        assert tattn.decode_impl("dense", s_cache, 8, s_max) == "dense"
+        outs = []
+        for impl in ("kernel", "dense"):
+            cache = {"k": torch.ones(1, s_cache, 2, 64),
+                     "v": torch.ones(1, s_cache, 2, 64)}
+            outs.append(tattn.gqa_decode(layer, x, torch.tensor([3]), cache,
+                                         swa, "attn", impl=impl,
+                                         s_max=s_max)[0])
+        torch.testing.assert_close(outs[0], outs[1], **TOL["float32"])
+    # a window-long cache with no s_max is either layout: "kernel" refuses
+    assert tattn.decode_impl("dense", 8, 8, None) == "dense"
+    with pytest.raises(ValueError, match="pass s_max"):
+        tattn.gqa_decode(layer, x, torch.tensor([3]),
+                         {"k": torch.ones(1, 8, 2, 64),
+                          "v": torch.ones(1, 8, 2, 64)}, swa, "attn",
+                         impl="kernel")
