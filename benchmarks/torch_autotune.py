@@ -14,6 +14,10 @@ twin of ``benchmarks/autotune.py``).
     PYTHONPATH=src python benchmarks/torch_autotune.py --device cpu \\
         --reduced --seq 64 --out build/torch_autotune.json
 
+``run(csv_rows)`` is the harness entry (``benchmarks/torch_run.py``): one
+tune in this process on the visible card, no re-exec (torch needs no flag
+set before it is imported, as JAX's forced device count is).
+
 ``Session.tune()`` times the four CUDA kernels against their plain
 versions (``bench_kernels``), measures ``--steps`` training steps of the
 executed config at ``--batch`` x ``--seq`` (``auto`` attention, no remat;
@@ -142,7 +146,7 @@ def bench(args) -> dict:
     return d
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-2b")
     ap.add_argument("--reduced", action="store_true",
@@ -159,7 +163,11 @@ def main(argv=None) -> int:
                     help="calibration cache ('' = measure, keep nothing)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="results/torch_autotune.json")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.distributed.trainer import torchrun_env
 
@@ -173,6 +181,28 @@ def main(argv=None) -> int:
         print(f"wrote {out}")
         print(json.dumps({"acceptance": acc}))
     return 0 if all(acc.values()) else 1
+
+
+def run(csv_rows, device="cuda", reduced=False):
+    """Harness entry (``benchmarks/torch_run.py --only autotune``): one
+    ``Session.tune()`` in this process on the visible card (the single-
+    device loop; ``--reduced`` at seq 64 on the CPU), JAX's rows; a failed
+    acceptance property raises."""
+    print("\n== autotune: measured calibration + the paper's procedure ==")
+    sys.path.insert(0, str(ROOT / "src"))
+    d = bench(parse_args(["--device", device] + (
+        ["--reduced", "--seq", "64"] if reduced else [])))
+    acc = d["meta"]["bench"]["acceptance"]
+    if not all(acc.values()):
+        raise RuntimeError(f"torch_autotune: acceptance failed: {acc}")
+    t = d["measured"]["tuning"]
+    csv_rows.append(("autotune/minibatch_chosen",
+                     t["minibatch"]["chosen"], "largest m_bound-feasible"))
+    r_ = t["replan"]
+    csv_rows.append(("autotune/abs_err_calibrated_s",
+                     r_["abs_err_calibrated_s"],
+                     f"datasheet={r_['abs_err_uncalibrated_s']:.4g}"))
+    csv_rows.append(("autotune/flops_efficiency", r_["flops_efficiency"], ""))
 
 
 if __name__ == "__main__":

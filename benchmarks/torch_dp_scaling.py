@@ -34,6 +34,19 @@ compute without the barrier, rank 0's step walls, peak memory, and the
 card's name and power limit.  This process then adds the measured speedup against G = 1 of the
 same cell and the per-rank compute against G = 1's, prints each line
 again, and writes them all to ``--out``.
+
+Fig. 4's columns (the twin of ``benchmarks/fig4_speedup.py``): beside each
+measured cell's speedup go Lemma 3.1's estimate and the simulated
+``multi_device_speedup`` priced from that cell's G = 1 step phases (the
+medians of its steady steps), and with ``--pipe P`` the 1F1B column (the
+G cards as P stages x G/P shards, Lemma 3.1 over the shards times the
+``m/(m+P-1)`` share of the schedule).  ``run(csv_rows)`` is JAX's Fig. 4
+on the card: one device's step phases, measured for each of JAX's four
+archs (granite-3-2b, gemma2-27b cut to one cycle of 2 layers,
+mamba2-780m and musicgen-large at full width; ``--reduced`` configs on
+the CPU; batch 8 x seq 64, 6 steps, ``dense`` attention, no remat), fill
+the estimated and simulated columns for G = 1, 2, 4, 8; where more than
+one card is visible the measured cells above follow.
 """
 from __future__ import annotations
 
@@ -47,9 +60,17 @@ import time
 from datetime import timedelta
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "src"))
+
+FIG4_ARCHS = {"granite-3-2b": 0, "gemma2-27b": 2, "mamba2-780m": 0,
+              "musicgen-large": 0}  # layers at full width (0: all)
+G_COLUMNS = (1, 2, 4, 8)
+PHASES = ("param_refresh", "data_load", "data_prep", "h2d", "compute",
+          "param_update", "dist_update")
 
 
 def smi() -> str:
@@ -57,6 +78,38 @@ def smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def pipelined_speedup(g: int, r_o: float, pipe: int, m: int) -> float:
+    """Fig. 4's 1F1B column for a (pipe x g/pipe) grid: Lemma 3.1 over the
+    data shards, times the stage split, derated by the 1F1B bubble."""
+    from repro_torch.core import amdahl
+    from repro_torch.core.pipeline import pipeline_bubble
+
+    if pipe <= 1:
+        return amdahl.speedup(g, r_o)
+    return amdahl.speedup(g // pipe, r_o) * pipe * (1.0 - pipeline_bubble(pipe, m))
+
+
+def fig4_cell(times, g: int, pipe: int = 0, m: int = 0) -> dict:
+    """Fig. 4 at G = ``g`` from one device's ``StepTimes``: Lemma 3.1's
+    estimate, the simulated speedup, and with ``pipe`` dividing ``g`` the
+    1F1B column."""
+    from repro_torch.core import amdahl
+    from repro_torch.core.pipeline import multi_device_speedup
+
+    r_o = times.r_o()
+    cell = {"estimated": amdahl.speedup(g, r_o),
+            "actual_sim": multi_device_speedup(times, g)}
+    if pipe > 1 and g % pipe == 0:
+        cell["pipelined_1f1b"] = pipelined_speedup(g, r_o, pipe, m)
+    return cell
+
+
+def median_phases(step_times) -> dict:
+    """Each step phase's median over ``step_times``."""
+    return {k: float(np.median([getattr(t, k) for t in step_times]))
+            for k in PHASES}
 
 
 def cells(args):
@@ -154,6 +207,8 @@ def worker(args) -> None:
             "step_walls_s": [t.compute + t.dist_update + t.param_update
                              for t in res.step_times],
             "fused_walls_s": [f["wall_s"] for f in tr._fused_steps],
+            "step_times_median": median_phases(res.step_times[warm:]
+                                               or res.step_times),
             "sync": rep.as_dict(), "card": card,
         }
         if env.rank == 0:
@@ -164,7 +219,7 @@ def worker(args) -> None:
             torch.cuda.empty_cache()
 
 
-def main() -> None:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--gpus", default="1,2,4,8",
                     help="process counts G to run, where the machine has "
@@ -176,13 +231,25 @@ def main() -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reduced", action="store_true",
                     help="the reduced config (a CPU rehearsal)")
+    ap.add_argument("--pipe", type=int, default=0,
+                    help="add Fig. 4's 1F1B column: G cards as (pipe x "
+                         "G/pipe), derated by the (p-1)/(m+p-1) bubble")
+    ap.add_argument("--microbatch", type=int, default=0,
+                    help="1F1B microbatches for the --pipe column "
+                         "(0 = 4*pipe)")
     ap.add_argument("--timeout", type=float, default=900.0,
                     help="seconds per torchrun job")
     ap.add_argument("--out", default="results/torch_dp_scaling.jsonl")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.worker:
-        return worker(args)
+    return ap.parse_args(argv)
+
+
+def measure_cells(args) -> list:
+    """One torchrun job per G in ``--gpus`` that the machine has; every
+    cell's line with its speedup against G = 1 and Fig. 4's columns from
+    the G = 1 cell's step phases; written to ``--out``."""
+    from repro_torch.core.pipeline import StepTimes
+
     if args.device == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("torch_dp_scaling: needs a CUDA device")
@@ -221,11 +288,14 @@ def main() -> None:
             print(err[-4000:], file=sys.stderr, flush=True)
         rows += got
     base = {r["cell"]: r for r in rows if r["G"] == 1}
+    m = args.microbatch or 4 * max(args.pipe, 1)
     for r in rows:
         b = base.get(r["cell"])
         if b:
             r["speedup"] = r["tokens_per_s"] / b["tokens_per_s"]
             r["compute_vs_G1"] = r["compute_s"] / b["compute_s"]
+            r["fig4"] = fig4_cell(StepTimes(**b["step_times_median"]), r["G"],
+                                  args.pipe, m)
         print(json.dumps(r), flush=True)
     path = ROOT / args.out
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -233,6 +303,112 @@ def main() -> None:
     print(f"wrote {path}", flush=True)
     if failed:
         raise SystemExit(f"torch_dp_scaling: torchrun failed at G = {failed}")
+    return rows
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    if args.worker:
+        return worker(args)
+    measure_cells(args)
+
+
+def one_device_times(arch: str, layers: int, device: str, reduced: bool):
+    """JAX's Fig.-4 measurement on one device: 6 steps of batch 8 x seq
+    64 at ``dense`` attention without remat; returns the session, its spec,
+    the run's result and its ``StepTimes`` (medians past the first two
+    steps, the update priced at 5% of compute, as JAX's)."""
+    from repro_torch.api import JobSpec, Session
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.pipeline import StepTimes
+    from repro_torch.models.blocks import RunConfig
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.loop import train
+
+    spec = JobSpec(arch=arch, reduced=reduced, steps=6, batch=8, seq=64,
+                   lr=1e-3, log_every=0)
+    cut = None if reduced or not layers else \
+        get_config(arch).replace(num_layers=layers)
+    sess = Session(spec, config=cut, device=device)
+    run_cfg = RunConfig(attn_impl="dense", remat="none")
+    res = train(sess.cfg, run_cfg, OptConfig(lr=spec.lr), batch=spec.batch,
+                seq=spec.seq, steps=spec.steps, log_every=0, device=device)
+    med = median_phases(res.step_times[2:])
+    t = StepTimes(data_load=med["data_load"], data_prep=med["data_prep"],
+                  h2d=med["h2d"], compute=med["compute"],
+                  param_update=0.05 * med["compute"])
+    return sess, spec, res, t, run_cfg
+
+
+def run(csv_rows, device="cuda", reduced=False, pipe: int = 0,
+        n_microbatch: int = 0):
+    """Harness entry (``benchmarks/torch_run.py --only fig4``): JAX's
+    Fig. 4 from one device's measured step phases, then, where more than
+    one card is visible, the measured cells."""
+    from repro_torch.api import Report
+    from repro_torch.obs import MetricsRegistry
+
+    if device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("torch_dp_scaling: needs a CUDA device")
+    card = smi() if device == "cuda" else "cpu (no device numbers)"
+    print("\n== Fig. 4: estimated (Lemma 3.1) vs simulated actual speedup "
+          f"({card}) ==")
+    reports = []
+    for arch, layers in FIG4_ARCHS.items():
+        sess, spec, res, t, run_cfg = one_device_times(arch, layers, device,
+                                                       reduced)
+        r_o = t.r_o()
+        m = n_microbatch or 4 * max(pipe, 1)
+        print(f"{arch} ({sess.cfg.num_layers} layers): T_C="
+              f"{t.compute * 1e3:.0f}ms R_O={r_o:.3f}")
+        head = f"  {'G':>3s} {'estimated':>10s} {'actual(sim)':>12s}"
+        if pipe > 1:
+            head += f" {'1F1B(p=%d)' % pipe:>12s}"
+        print(head)
+        speedups = {}
+        for g in G_COLUMNS:
+            cell = fig4_cell(t, g, pipe, m)
+            row = f"  {g:3d} {cell['estimated']:10.2f} {cell['actual_sim']:12.2f}"
+            if "pipelined_1f1b" in cell:
+                row += f" {cell['pipelined_1f1b']:12.2f}"
+                csv_rows.append((f"fig4/{arch}/G{g}/pipe{pipe}",
+                                 cell["pipelined_1f1b"], f"m={m}"))
+            elif pipe > 1:
+                row += f" {'-':>12s}"
+            print(row)
+            csv_rows.append((f"fig4/{arch}/G{g}", cell["actual_sim"],
+                             f"est={cell['estimated']:.2f}"))
+            speedups[str(g)] = cell
+        measured = res.summary()
+        measured["speedup"] = speedups
+        reg = MetricsRegistry()
+        reg.set_gauge("bench/r_o", r_o)
+        for st in res.step_times:
+            reg.inc("bench/steps")
+            reg.observe("bench/compute_s", st.compute)
+        measured["metrics"] = reg.section()
+        meta = sess.report_meta()
+        meta.update(benchmark="fig4_speedup", card=card,
+                    run_config={"attn_impl": run_cfg.attn_impl,
+                                "remat": run_cfg.remat})
+        rep = Report(kind="bench", spec=spec.to_dict(),
+                     plan=sess.resolved_plan.to_dict(), measured=measured,
+                     predicted=sess.plan().predicted, meta=meta)
+        reports.append(rep.validate().to_dict())
+        del sess, res
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    out = ROOT / "results" / "torch_fig4_report.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"reports": reports}, indent=2, default=str))
+    print(f"wrote {out}")
+    if device == "cuda" and torch.cuda.device_count() > 1:
+        for r in measure_cells(parse_args(["--pipe", str(pipe)])):
+            if r["G"] > 1 and "speedup" in r:
+                csv_rows.append((f"fig4_measured/{r['cell']}/G{r['G']}",
+                                 r["speedup"],
+                                 f"est={r['fig4']['estimated']:.2f},"
+                                 f"sim={r['fig4']['actual_sim']:.2f}"))
 
 
 if __name__ == "__main__":

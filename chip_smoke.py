@@ -270,6 +270,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
    at gemma2's (window 4096, cap 50; S 4300 and 64; B2 at s_max 512, and
    at 4608 on a swa slot past the window and on a global slot), musicgen's and llava's (S 616, G = 7) shapes to the kernels
    line, each with the launches of its path, and prints the phase's wall.
+18. records — the port's benchmark cells in this process, appending no
+   record (no tracked file changes; outputs under build/chip_smoke,
+   deleted after): (1) benchmarks/torch_serve_continuous.py's measure()
+   at its defaults (granite-3-2b at full width, the seeded weights with
+   smoothed attention, decode_32k, 8 requests, n_new <= 24, s_max 128,
+   max_batch 2), static then continuous after an untimed two-request
+   run of each, the counters zeroed just before and read just after each
+   timed runtime: B1 = prefills x 40 and B2 = decode steps x 40 in each,
+   no other kernel; every request its tokens, no NaN/inf logits row,
+   both Reports valid; check 2 (continuous decode-token steps ==
+   delivered tokens, none wasted, fewer than static's) asserted; check 1
+   (the same token heads) and check 3 (continuous tokens/s above
+   static's) printed: equal, or the requests and steps where the streams
+   part; and both rates; (2) benchmarks/torch_telemetry.py
+   at dp = 1 (full width, batch 8 x seq 64, 8 steps, overlapped; a static
+   serve of 4 requests), its reconciliations asserted (bucket_sync spans
+   within 5% of per_bucket_comm_s, the trace's compute/bucket_sync/
+   fused_step/step spans, prefill spans equal to the batches'
+   prefill_s, both Reports valid), its serve B1 = batches x 40 and B2 =
+   decode steps x 40, its training none; (3)
+   benchmarks/torch_ilp_planner.py's four tables (ilp, planner,
+   ilp_h100, planner_h100: one row per arch each).  It prints the
+   phase's wall.
 
 Then it prints the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line, and, last, the
@@ -2655,14 +2678,22 @@ def read_counts(torch, wrappers) -> dict:
     return {n: fn.launches for n, fn in wrappers.items()}
 
 
+def served_counts(m, mode: str):
+    """(prefills, decode steps) of a serve Report's measured block: a
+    continuous run's decode steps are its engine steps, a static batch's
+    n_new - 1 (its first token comes from the prefill)."""
+    if mode == "continuous":
+        return (m["metrics"]["histograms"]["serve/prefill_s"]["count"],
+                m["serving"]["throughput"]["engine_steps"])
+    return (len(m["batches"]), sum(b["n_new"] - 1 for b in m["batches"]))
+
+
 def serve_session(torch, wrappers, arch, cfg, mode, label, card, *,
                   requests=8, n_new=32, **kw):
     """Session.serve() of ``cfg`` at full width, the counters zeroed just
     before and read just after; fails on a missing token, a non-finite
     logits row or an invalid report.  Returns (launches, prefills, decode
-    steps, prefill chunks, prompt lengths): a continuous run's decode
-    steps are its engine steps, a static batch's are n_new - 1 (its first
-    token comes from the prefill)."""
+    steps (:func:`served_counts`), prefill chunks, prompt lengths)."""
     from repro_torch.api import JobSpec, Session, validate_report
 
     spec = JobSpec(arch=arch, reduced=False, requests=requests, n_new=n_new,
@@ -2683,12 +2714,7 @@ def serve_session(torch, wrappers, arch, cfg, mode, label, card, *,
     if counters["serve/nonfinite_logit_rows"]:
         fail(f"{label} {mode}: {counters['serve/nonfinite_logit_rows']} "
              "logits rows hold NaN or inf")
-    if mode == "continuous":
-        prefills = hists["serve/prefill_s"]["count"]
-        steps = m["serving"]["throughput"]["engine_steps"]
-    else:
-        prefills = len(m["batches"])
-        steps = sum(b["n_new"] - 1 for b in m["batches"])
+    prefills, steps = served_counts(m, mode)
     chunks = hists.get("serve/prefill_chunk_s", {}).get("count", 0)
     lengths = m["prompt_lengths"]
     print(f"[zoo] {label} ({rep.meta['executed_config']['n_params']:,} "
@@ -3127,6 +3153,116 @@ def zoo_phase(torch, mods, wrappers) -> list:
     return cases
 
 
+# phase 18: the port's record cells, appending nothing
+def _bench_module(name: str):
+    """``benchmarks/<name>.py`` of this checkout, loaded from its file."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "benchmarks" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def records_phase(torch, wrappers) -> None:
+    """Phase 18: the serve, telemetry and ILP cells (see the module
+    docstring)."""
+    import shutil
+    import tempfile
+    from contextlib import contextmanager
+
+    from repro_torch.api import Session
+    from repro_torch.configs.base import ARCH_IDS
+
+    t_phase = time.perf_counter()
+    card = card_label()
+    sc = _bench_module("torch_serve_continuous")
+    tel = _bench_module("torch_telemetry")
+    ilp = _bench_module("torch_ilp_planner")
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="records_", dir=root))
+    try:
+        # 18.1: static then continuous, each runtime's launches its own
+        args = sc.parse_args(["--no-bench-append", "--outdir", str(tmp)])
+        launches = {}
+
+        @contextmanager
+        def counted(mode):
+            zero_counts(torch, wrappers)
+            yield
+            launches[mode] = read_counts(torch, wrappers)
+
+        torch.cuda.empty_cache()
+        out = sc.measure(args, watch=counted)
+        want = [n for _, _, n in
+                Session(sc.base_spec(args), device=args.device)._serve_workload()]
+        for mode in sc.MODES:
+            m = out[mode].measured
+            got = [r["tokens"] for r in m["per_request"]]
+            if got != want:
+                fail(f"[records] {mode}: tokens per request {got} != n_new "
+                     f"{want}")
+            bad = m["metrics"]["counters"]["serve/nonfinite_logit_rows"]
+            if bad:
+                fail(f"[records] {mode}: {bad} logits rows hold NaN or inf")
+            prefills, steps = served_counts(m, mode)
+            expect(f"[records] {mode}", launches[mode], prefills * LAYERS,
+                   steps * LAYERS)
+            print(f"[records] {mode}: {m['n_tokens']} tokens at "
+                  f"{m['tokens_per_s']:.1f} tok/s; {prefills} prefills, "
+                  f"{steps} decode steps; launches "
+                  f"{ {n: c for n, c in launches[mode].items() if c} } "
+                  f"(= {prefills} x {LAYERS}, {steps} x {LAYERS}) ({card})",
+                  flush=True)
+        ok2, msg2 = sc.check_decode_work(out)
+        if not ok2:
+            fail(f"[records] check 2: {msg2}")
+        print(f"[records] check 2 pass: {msg2}", flush=True)
+        ok1, msg1 = sc.check_streams(out)
+        print(f"[records] check 1 {'pass' if ok1 else 'not held'}: {msg1} "
+              f"({out['summary']['init']} init, "
+              f"{out['summary']['dtype']}) ({card})", flush=True)
+        ok3, msg3 = sc.check_speed(out)
+        print(f"[records] check 3 {'pass' if ok3 else 'not held'}: {msg3}; "
+              f"engine steps {out['summary']['engine_steps']} ({card})",
+              flush=True)
+        del out
+        torch.cuda.empty_cache()
+
+        # 18.2: the telemetry cell at one rank
+        targs = tel.parse_args(["--devices", "1", "--no-bench-append",
+                                "--outdir", str(tmp)])
+        zero_counts(torch, wrappers)
+        tout = tel.measure(targs)
+        moved = read_counts(torch, wrappers)
+        prefills, steps = served_counts(tout["serve"].measured, "static")
+        expect("[records] telemetry (serve, static; its training none)",
+               moved, prefills * LAYERS, steps * LAYERS)
+        sync = tout["train"].measured["sync"]
+        print(f"[records] telemetry: dp 1, {sync['n_buckets']} buckets, "
+              f"reconciled; train {tout['train'].measured['tokens_per_s']:.1f}"
+              f" tok/s, serve {tout['serve'].measured['tokens_per_s']:.1f} "
+              f"tok/s; launches "
+              f"{ {n: c for n, c in moved.items() if c} } ({card})",
+              flush=True)
+        del tout
+        torch.cuda.empty_cache()
+
+        # 18.3: the ILP and planner tables, JAX's mesh and one H100 node
+        rows = []
+        ilp.run(rows)
+        for prefix in ("ilp", "planner", "ilp_h100", "planner_h100"):
+            n = sum(r[0].split("/")[0] == prefix for r in rows)
+            if n != len(ARCH_IDS):
+                fail(f"[records] {n} {prefix} rows, want {len(ARCH_IDS)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[records] phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"({card})", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -3352,6 +3488,9 @@ def main() -> None:
 
     # 17. gemma2, musicgen, llava; chunked prefill, int8 KV, sampling ------------------
     cases += zoo_phase(torch, mods, wrappers)
+
+    # 18. records: the serve, telemetry and ILP cells, appending nothing ------------
+    records_phase(torch, wrappers)
 
     leaked = sorted(n for n in sys.modules
                     if n.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",

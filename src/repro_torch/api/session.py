@@ -98,14 +98,17 @@ LEMMA31_G = (2, 4, 8, 16)
 MESH_CLUSTERS = {"single": "h100-8", "multi": "h100-2x8"}
 
 
-def serve_attn_impl(cfg: ModelConfig) -> str:
+def serve_attn_impl(cfg: ModelConfig, device=None) -> str:
     """The attention algorithm ``Session.serve()`` runs ``cfg`` on:
     ``"kernel"`` where every attention slot is GQA (Mamba slots, mamba2
     and jamba, included: their prefill scan then runs on B4, their
     single-token step in plain PyTorch, as JAX's), ``"dense"`` for an MLA
     model, whose q/k and v head dims differ (the flash kernel, like JAX's
     Pallas kernel, takes one head dim; MLA decodes in the absorbed-latent
-    form, which no kernel carries).
+    form, which no kernel carries).  On a CUDA ``device`` a config whose
+    dtype is not bf16 runs on ``"dense"`` too: the kernels take bf16 only
+    (``kernels/_launch.py::check_inputs``), where on the CPU their plain
+    versions take any dtype.
 
     On ``"kernel"`` every GQA prefill runs B1, with a sliding-window
     slot's window and the softcap (gemma2: window 4096 on its swa slots,
@@ -120,7 +123,9 @@ def serve_attn_impl(cfg: ModelConfig) -> str:
     ``"dense"`` too, as JAX's.  Chunked prefill (``prefill_chunk``) runs
     its chunks in plain PyTorch, as JAX's ``extend_step`` does."""
     mla = any(s.mixer.startswith("mla") for s in cfg.pattern)
-    return "dense" if mla else "kernel"
+    not_bf16_on_card = (cfg.dtype != "bfloat16" and device is not None
+                        and torch.device(device).type == "cuda")
+    return "dense" if mla or not_bf16_on_card else "kernel"
 
 
 # What a sweep cell may raise and still be recorded as skipped: a spec that
@@ -136,8 +141,12 @@ class Session:
     for ``cpu``; ``cuda`` without a card raises here)."""
 
     def __init__(self, spec: JobSpec, *, config: Optional[ModelConfig] = None,
-                 calibration: Optional["Calibration"] = None, device="cuda"):
+                 calibration: Optional["Calibration"] = None, device="cuda",
+                 serve_params=None):
         self.spec = spec
+        # the weights serve() runs on in place of the seeded init (a tree
+        # as models.model.init_params gives), shared by every serve call
+        self.serve_params = serve_params
         self.device = resolve_device(device)
         self.cfg_full = get_config(spec.arch)
         self.cfg = config if config is not None else (
@@ -652,8 +661,9 @@ class Session:
 
         spec, cfg = self.spec, self.cfg
         tracer, metrics = self._make_obs()
-        eng = Engine(cfg, RunConfig(attn_impl=serve_attn_impl(cfg)),
-                     s_max=spec.s_max,
+        eng = Engine(cfg,
+                     RunConfig(attn_impl=serve_attn_impl(cfg, self.device)),
+                     self.serve_params, s_max=spec.s_max,
                      seed=spec.seed, device=self.device, tracer=tracer,
                      metrics=metrics)
         sched = BatchScheduler(eng, max_batch=spec.max_batch)
@@ -680,7 +690,9 @@ class Session:
         spec, cfg = self.spec, self.cfg
         tracer, metrics = self._make_obs()
         eng = ContinuousEngine(cfg,
-                               RunConfig(attn_impl=serve_attn_impl(cfg)),
+                               RunConfig(attn_impl=serve_attn_impl(
+                                   cfg, self.device)),
+                               self.serve_params,
                                s_max=spec.s_max, max_batch=spec.max_batch,
                                prefill_chunk=spec.prefill_chunk,
                                seed=spec.seed, device=self.device,

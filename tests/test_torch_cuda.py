@@ -730,3 +730,50 @@ def test_gemma2_serving_options_on_card(cuda):
             RunConfig(attn_impl="kernel"))
         out.append(lg.float().cpu())
     torch.testing.assert_close(out[0], out[1], **TOL)
+
+
+@pytest.mark.gpu
+def test_serve_continuous_cell_on_card(cuda, tmp_path):
+    """benchmarks/torch_serve_continuous.py's measure() at the reduced
+    config on the card: check 2 holds, and each runtime launches B1 once a
+    prefill and B2 once a decode step for every layer, no other kernel."""
+    import contextlib
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+
+    path = (Path(__file__).resolve().parent.parent / "benchmarks"
+            / "torch_serve_continuous.py")
+    spec = importlib.util.spec_from_file_location("torch_serve_continuous",
+                                                  path)
+    sc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sc)
+    args = sc.parse_args(["--reduced", "--quick", "--no-bench-append",
+                          "--outdir", str(tmp_path)])
+    launches = {}
+
+    @contextlib.contextmanager
+    def counted(mode):
+        torch.cuda.synchronize()
+        fa_k.flash_attention.launches = dec_k.decode_attention.launches = 0
+        yield
+        torch.cuda.synchronize()
+        launches[mode] = (fa_k.flash_attention.launches,
+                          dec_k.decode_attention.launches)
+
+    out = sc.measure(args, watch=counted)
+    ok, msg = sc.check_decode_work(out)
+    assert ok, msg
+    layers = out["continuous"].meta["executed_config"]["num_layers"]
+    for mode in sc.MODES:
+        m = out[mode].measured
+        if mode == "continuous":
+            prefills = m["metrics"]["histograms"]["serve/prefill_s"]["count"]
+            steps = m["serving"]["throughput"]["engine_steps"]
+        else:
+            prefills = len(m["batches"])
+            steps = sum(b["n_new"] - 1 for b in m["batches"])
+        assert launches[mode] == (prefills * layers, steps * layers), mode
+        assert m["metrics"]["counters"]["serve/nonfinite_logit_rows"] == 0

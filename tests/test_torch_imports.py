@@ -1,5 +1,6 @@
 """Import guard: the port (``src/repro_torch``), its benchmarks
-(``benchmarks/torch_*.py``) and ``chip_smoke.py`` import neither JAX (nor
+(``benchmarks/torch_*.py``), its tools (``tools/torch_*.py``) and
+``chip_smoke.py`` import neither JAX (nor
 ``ml_dtypes``, which the card's machine lacks) nor anything of the JAX
 package ``repro``; they keep their own copies of what they need.  A
 static AST scan, so it also covers imports inside functions."""
@@ -10,8 +11,9 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 BENCHMARKS = sorted((REPO / "benchmarks").glob("torch_*.py"))
-FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + BENCHMARKS + [
-    REPO / "chip_smoke.py"]
+TOOLS = sorted((REPO / "tools").glob("torch_*.py"))
+FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + BENCHMARKS + \
+    TOOLS + [REPO / "chip_smoke.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -43,9 +45,14 @@ def test_no_jax_or_repro_imports(path):
 def test_scan_sees_every_module():
     assert len(FILES) > 20 and (REPO / "chip_smoke.py").exists()
     assert len(BENCHMARKS) >= 10 and all(p in FILES for p in BENCHMARKS)
+    assert TOOLS and all(p in FILES for p in TOOLS)
     for new in ("src/repro_torch/distributed/pipeline.py",
                 "src/repro_torch/core/pipeline.py",
-                "benchmarks/torch_pipeline.py"):
+                "benchmarks/torch_pipeline.py",
+                "benchmarks/torch_run.py", "benchmarks/torch_telemetry.py",
+                "benchmarks/torch_serve_continuous.py",
+                "benchmarks/torch_ilp_planner.py",
+                "tools/torch_bench_trajectory.py"):
         assert REPO / new in FILES, new
     assert _forbidden("repro.models") and _forbidden("jax.numpy")
     assert _forbidden("ml_dtypes")
