@@ -293,6 +293,21 @@ Phases, each fatal on failure (exit code != 0, no result line):
    benchmarks/torch_ilp_planner.py's four tables (ilp, planner,
    ilp_h100, planner_h100: one row per arch each).  It prints the
    phase's wall.
+19. contracts — repro_torch.analysis.kernel_contracts.card_check(): each
+   library's extern "C" query (it launches nothing) reports, for every
+   instantiation of B1-B4 (flash D 64/128; the split kernel linear and
+   paged and the combine at D 64/128; the scan's three passes at P 32/64
+   x N 16-128, chunk 256), the registers, spill bytes, static shared
+   memory and most threads (cudaFuncGetAttributes), the dynamic shared
+   memory its launch sets and the blocks an SM can hold at that size
+   (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  One line each:
+   registers against the __launch_bounds__ cap, spills, static and
+   dynamic shared memory against the mirror's formula, resident blocks
+   per SM against the design's claim, headroom under 232,448 B.  Fatal:
+   a dynamic size that differs from the mirror's, a block that cannot be
+   resident, a kernel that takes fewer threads than its launch, a refused
+   query.  Then tools/torch_lint.py's main() in this process on this
+   checkout (exit 0, no stale suppression); no kernel launched.
 
 Then it prints the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line, and, last, the
@@ -1763,6 +1778,49 @@ def pipeline_phase(torch, wrappers, triad_12: float) -> None:
              f"5% of the 256 MiB triad {big:.4e} B/s (C7)")
 
 
+# phase 19: the kernels' contracts on the card, and the lint gate
+def contracts_phase(torch, wrappers) -> None:
+    """Phase 19 (see the module docstring).  Launches no kernel."""
+    import tempfile
+
+    from repro_torch.analysis import kernel_contracts as kc
+
+    t_phase = time.perf_counter()
+    card = card_label()
+    zero_counts(torch, wrappers)
+    rows = kc.card_check("cuda")  # raises KernelError on a contract fault
+    for r in rows:
+        print(f"[contracts] {r['kernel']}: {r['regs']} registers (cap "
+              f"{r['reg_cap']}), {r['spill_bytes']} B spilled; shared "
+              f"{r['static_smem']} B static + {r['dyn_smem']} B dynamic "
+              f"(mirror {r['mirror_dyn_smem']}); {r['threads']} threads; "
+              f"{r['blocks_resident']} blocks per SM resident, "
+              f"{r['blocks_claimed']} claimed; headroom {r['headroom']} B "
+              f"under {kc.SMEM_OPTIN}", flush=True)
+    under = [r["kernel"] for r in rows
+             if r["blocks_resident"] < r["blocks_claimed"]]
+    print(f"[contracts] {len(rows)} instantiations queried, every dynamic "
+          f"size equal to the mirror's, every block resident; below the "
+          f"claimed residency: {under or 'none'} ({card})", flush=True)
+    lint = _bench_module("torch_lint", folder="tools")
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="lint_", dir=root) as tmp:
+        out = Path(tmp) / "torch_lint.json"
+        rc = lint.main(["--out", str(out)])
+        payload = json.loads(out.read_text())
+    if rc != 0 or not payload["clean"] or payload["stale_suppressions"]:
+        fail(f"tools/torch_lint.py exited {rc}: "
+             f"{payload['findings'][:5]}, stale "
+             f"{payload['stale_suppressions']}")
+    moved = read_counts(torch, wrappers)
+    if any(moved.values()):
+        fail(f"phase 19 launched kernels: {moved}")
+    print(f"[contracts] torch_lint rc 0: {len(payload['suppressed'])} "
+          f"suppressed, 0 stale; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def card_label() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3154,11 +3212,11 @@ def zoo_phase(torch, mods, wrappers) -> list:
 
 
 # phase 18: the port's record cells, appending nothing
-def _bench_module(name: str):
-    """``benchmarks/<name>.py`` of this checkout, loaded from its file."""
+def _bench_module(name: str, folder: str = "benchmarks"):
+    """``<folder>/<name>.py`` of this checkout, loaded from its file."""
     import importlib.util
 
-    path = Path(__file__).resolve().parent / "benchmarks" / f"{name}.py"
+    path = Path(__file__).resolve().parent / folder / f"{name}.py"
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -3491,6 +3549,9 @@ def main() -> None:
 
     # 18. records: the serve, telemetry and ILP cells, appending nothing ------------
     records_phase(torch, wrappers)
+
+    # 19. the kernels' contracts on the card, and the lint gate ------------------
+    contracts_phase(torch, wrappers)
 
     leaked = sorted(n for n in sys.modules
                     if n.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",

@@ -261,4 +261,35 @@ __device__ __forceinline__ void tile_step(WarpState<D>& st,
   }
 }
 
+// What the runtime reports of one compiled kernel at the block size and
+// dynamic shared memory its launch uses, for the kernels' contract check
+// (analysis/kernel_contracts.py::card_check).  Launches nothing.  opt_in:
+// the launch raises the kernel's dynamic shared memory limit to dyn, and
+// so does this query.  out: registers a thread, local (spill) bytes a
+// thread, static shared bytes, the most threads a block, dyn, threads, and
+// the blocks an SM can hold at dyn.
+template <typename K>
+inline cudaError_t query_kernel(K kernel, int threads, int dyn, bool opt_in,
+                                long long* out) {
+  cudaError_t err = cudaSuccess;
+  if (opt_in)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes a;
+  if ((err = cudaFuncGetAttributes(&a, kernel)) != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, dyn);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = (long long)a.localSizeBytes;
+  out[2] = (long long)a.sharedSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  out[4] = dyn;
+  out[5] = threads;
+  out[6] = blocks;
+  return cudaSuccess;
+}
+
 }  // namespace rt

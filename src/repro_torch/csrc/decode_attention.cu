@@ -318,6 +318,23 @@ int run(const void* q, const KVSource& kv, const void* pos, void* o,
   return (int)err;
 }
 
+template <int D>
+cudaError_t query(int kind, int splits, long long* out) {
+  switch (kind) {
+    case 0:
+      return rt::query_kernel(decode_kernel<D, false>, rt::NTHREADS,
+                              smem_bytes<D>(), true, out);
+    case 1:
+      return rt::query_kernel(decode_kernel<D, true>, rt::NTHREADS,
+                              smem_bytes<D>(), true, out);
+    case 2:
+      return rt::query_kernel(decode_combine_kernel<D>, D,
+                              splits * (int)sizeof(float), false, out);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Plain C entries, loaded with ctypes.  pos is a device int32 array (B,).
@@ -365,4 +382,22 @@ extern "C" int paged_decode_attention_bf16(
   return run<true>(q, kv, pos, o, sp, B, H, KV, nb * bs, D,
                    rt::Strides{q_sb, q_sh, 0}, rt::Strides{o_sb, o_sh, 0},
                    scale, window, cap, device, stream);
+}
+
+// The contract query (rt::query_kernel) of the split kernel, linear (kind
+// 0) or paged (kind 1), at the launch's threads and smem_bytes<D>(), or of
+// the combine kernel (kind 2) at splits * 4 bytes.  Launches nothing.
+// Returns the CUDA error code; an uninstantiated D or kind is
+// cudaErrorInvalidValue.
+extern "C" int decode_attention_query(int kind, int D, int splits, int device,
+                                      long long* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (D == 64)
+    err = query<64>(kind, splits, out);
+  else if (D == 128)
+    err = query<128>(kind, splits, out);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
 }

@@ -397,3 +397,21 @@ extern "C" int flash_attention_bf16(
     err = cudaErrorInvalidValue;
   return (int)err;
 }
+
+// The contract query of flash_kernel<D> (rt::query_kernel): what the
+// runtime reports at the launch's 256 threads and smem_bytes<D>().
+// Launches nothing.  Returns the CUDA error code; an uninstantiated D is
+// cudaErrorInvalidValue.
+extern "C" int flash_attention_query(int D, int device, long long* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (D == 64)
+    err = rt::query_kernel(flash_kernel<64>, NTHREADS, smem_bytes<64>(), true,
+                           out);
+  else if (D == 128)
+    err = rt::query_kernel(flash_kernel<128>, NTHREADS, smem_bytes<128>(),
+                           true, out);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}

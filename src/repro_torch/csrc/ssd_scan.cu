@@ -703,6 +703,33 @@ cudaError_t run_n(const Args& g, int B, int N, int upto, cudaStream_t s) {
   }
 }
 
+template <int P, int N>
+cudaError_t query(int pass, int Qp, int R, long long* out) {
+  switch (pass) {
+    case 1:
+      return rt::query_kernel(chunk_pass<P, N>, NTHREADS,
+                              (int)chunk_smem(Qp, P, N), true, out);
+    case 2:
+      return rt::query_kernel(state_pass, 256, 0, false, out);
+    case 3:
+      return rt::query_kernel(output_pass<P, N>, NTHREADS,
+                              (int)output_smem(Qp, P, N, R), true, out);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int P>
+cudaError_t query_n(int pass, int N, int Qp, int R, long long* out) {
+  switch (N) {
+    case 16: return query<P, 16>(pass, Qp, R, out);
+    case 32: return query<P, 32>(pass, Qp, R, out);
+    case 64: return query<P, 64>(pass, Qp, R, out);
+    case 128: return query<P, 128>(pass, Qp, R, out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Plain C entry, loaded with ctypes.  Strides are in elements: x and y
@@ -747,6 +774,27 @@ extern "C" int ssd_scan_bf16(
     err = run_n<32>(g, B, N, upto, s);
   else if (P == 64)
     err = run_n<64>(g, B, N, upto, s);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// The contract query (rt::query_kernel) of pass 1, 2 or 3 of the <P, N>
+// instantiation at a chunk of Q rows and R row blocks: the threads and the
+// dynamic shared memory run() launches it with.  Launches nothing.
+// Returns the CUDA error code; sizes run() refuses are
+// cudaErrorInvalidValue.
+extern "C" int ssd_scan_query(int pass, int P, int N, int Q, int R, int device,
+                              long long* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (Q <= 0 || Q > QMAX || Q % 4 || R < 1 || R > 2 ||
+      pairs_max(padded(Q), R) > NWARPS / 2)
+    return (int)cudaErrorInvalidValue;
+  if (P == 32)
+    err = query_n<32>(pass, N, padded(Q), R, out);
+  else if (P == 64)
+    err = query_n<64>(pass, N, padded(Q), R, out);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

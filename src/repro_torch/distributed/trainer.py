@@ -776,7 +776,7 @@ class DataParallelTrainer:
             start = 0
             if ckpt_dir:  # rank 0's newest step, on every rank
                 found = (latest_step(ckpt_dir) or 0) if self.rank == 0 else 0
-                start = int(self.barrier(float(found)))
+                start = int(self.barrier(found))
             loader = PrefetchLoader(self.cfg, batch, seq,
                                     device=self.devices, seed=seed,
                                     shard=(self.rank, self.dp),

@@ -777,3 +777,18 @@ def test_serve_continuous_cell_on_card(cuda, tmp_path):
             steps = sum(b["n_new"] - 1 for b in m["batches"])
         assert launches[mode] == (prefills * layers, steps * layers), mode
         assert m["metrics"]["counters"]["serve/nonfinite_logit_rows"] == 0
+
+
+@pytest.mark.gpu
+def test_kernel_contracts_hold_on_card(cuda):
+    """The compiled kernels against the contracts' mirror: no fault, and
+    every instantiation's dynamic shared memory the mirror's formula."""
+    from repro_torch.analysis import kernel_contracts as kc
+
+    rows = kc.card_check(cuda)
+    assert len(rows) == len(kc.card_cases())
+    for r, case in zip(rows, kc.card_cases()):
+        assert r["kernel"] == case.launch.kernel
+        assert r["dyn_smem"] == r["mirror_dyn_smem"] == case.launch.dyn_smem
+        assert r["blocks_resident"] >= 1
+        assert r["max_threads"] >= r["threads"] == case.launch.threads

@@ -52,7 +52,9 @@ def test_scan_sees_every_module():
                 "benchmarks/torch_run.py", "benchmarks/torch_telemetry.py",
                 "benchmarks/torch_serve_continuous.py",
                 "benchmarks/torch_ilp_planner.py",
-                "tools/torch_bench_trajectory.py"):
+                "tools/torch_bench_trajectory.py",
+                "src/repro_torch/analysis/kernel_contracts.py",
+                "tools/torch_lint.py"):
         assert REPO / new in FILES, new
     assert _forbidden("repro.models") and _forbidden("jax.numpy")
     assert _forbidden("ml_dtypes")
