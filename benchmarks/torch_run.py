@@ -20,10 +20,10 @@ serve_continuous).  Each name runs its twin's ``run(csv_rows)``:
   ``torch_sweep``; autotune: ``torch_autotune``; ilp:
   ``torch_ilp_planner``; telemetry: ``torch_telemetry``;
   serve_continuous: ``torch_serve_continuous``.
-- dryrun and roofline read XLA dry-run artifacts and have no twin
-  (ROADMAP Queue A item 5): naming either raises ``NotImplementedError``,
-  so the default ``--only`` is the eleven that exist.  An unknown name is
-  an error.
+- dryrun: ``torch_dryrun_summary``; roofline: ``torch_roofline``.  Both
+  read the port's dry-run records (``results/torch_dryrun/``, written by
+  ``python -m repro_torch.launch.dryrun``); with none there they render
+  empty tables.  An unknown name is an error.
 
 The measured twins run on ``--device`` (the card unless the caller asks
 for the CPU, where ``--reduced`` picks the reduced configs); the harness
@@ -48,8 +48,7 @@ ALL = ("table2", "fig2", "fig3", "fig4", "lemma32", "sync", "sweep",
        "serve_continuous")
 SLOW = ("fig2", "fig3", "fig4", "sync", "autotune", "telemetry",
         "serve_continuous")
-UNPORTED = ("dryrun", "roofline")
-DEFAULT = tuple(n for n in ALL if n not in UNPORTED)
+DEFAULT = ALL
 
 
 def _twin(name: str):
@@ -79,6 +78,8 @@ def entries(device: str, reduced: bool):
         "sweep": lambda rows: _twin("torch_sweep").run(rows, **dev),
         "autotune": lambda rows: _twin("torch_autotune").run(rows, **both),
         "ilp": lambda rows: _twin("torch_ilp_planner").run(rows),
+        "dryrun": lambda rows: _twin("torch_dryrun_summary").run(rows),
+        "roofline": lambda rows: _twin("torch_roofline").run(rows),
         "telemetry": lambda rows: _twin("torch_telemetry").run(rows, **both),
         "serve_continuous": lambda rows: _twin("torch_serve_continuous").run(
             rows, **both),
@@ -87,13 +88,9 @@ def entries(device: str, reduced: bool):
 
 def select(only: str, fast: bool) -> list:
     """The names to run: ``only`` in its order, less the slow ones under
-    ``fast``; an unported or unknown name raises."""
+    ``fast``; an unknown name raises."""
     which = [w.strip() for w in only.split(",") if w.strip()]
     for name in which:
-        if name in UNPORTED:
-            raise NotImplementedError(
-                f"{name}: reads XLA dry-run artifacts, which the port has "
-                "no twin of (ROADMAP Queue A item 5)")
         if name not in ALL:
             raise ValueError(f"unknown benchmark {name!r}; known: "
                              f"{', '.join(DEFAULT)}")

@@ -309,6 +309,30 @@ Phases, each fatal on failure (exit code != 0, no result line):
    query.  Then tools/torch_lint.py's main() in this process on this
    checkout (exit 0, no stale suppression); no kernel launched.
 
+20. sharded — the explicit rank program (distributed/spmd.py) and its
+   meta dry run, no kernel launches (counters zeroed before, 0 after):
+   (1) expert parallel at deepseek-v2 width (E 160, k 6, D 5120, F 1536,
+   T 2048, bf16): moe_mlp_sharded on a one-rank NCCL group bitwise equal
+   to moe_mlp, and the sum of _local_expert_pass over 4 and over 8
+   emulated expert shards (plus the shared experts) within the bf16
+   tolerance of moe_mlp; each one's device time; (2) the sharded train
+   step at mesh (1, 1) on full-width granite-3-2b (40 layers, batch 4 x
+   seq 512, auto attention, block remat) in fp32 against the unsharded
+   step (C5's bounds: loss and every param within 2e-4 + 2e-4 * max
+   |want|, but 2 * lr + 2e-4 where the clipped gradient is below
+   100 * eps), run under the dry run's FLOP counter and memory meter:
+   the meta dry run of the same step must give the real tensors'
+   argument bytes and the real step's FLOPs exactly, and its temp bytes
+   within 15% of what the real step allocated beyond what was allocated
+   before it (torch.cuda.max_memory_allocated() less memory_allocated()
+   before the step, so nothing an earlier phase left in the allocator
+   counts; both and the ratio printed, and argument + temp against the
+   whole peak beside them); (3) one dry-run record per slot
+   family on the single-pod mesh (granite train_4k, deepseek-v2
+   decode_32k, musicgen prefill_32k, jamba train_4k), each ok, with its
+   per-chip GiB, FLOPs, wire GiB and trace time (records written under
+   build/chip_smoke and deleted).
+
 Then it prints the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line, and, last, the
 {"ok": true, "device": {...}} line.
@@ -1818,6 +1842,193 @@ def contracts_phase(torch, wrappers) -> None:
         fail(f"phase 19 launched kernels: {moved}")
     print(f"[contracts] torch_lint rc 0: {len(payload['suppressed'])} "
           f"suppressed, 0 stale; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# phase 20: the sharded step and its dry run
+def sharded_phase(torch, wrappers) -> None:
+    """Phase 20 (see the module docstring)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import spmd
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.steps import build_grad_fn
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.models.blocks import RunConfig
+    from repro_torch.models.common import materialize, tree_items, tree_map
+    from repro_torch.optim.adamw import OptConfig, apply_updates, init_state
+
+    zero_counts(torch, wrappers)
+    t_phase = time.perf_counter()
+    card = card_label()
+    bf16 = torch.bfloat16
+
+    # 20.1: expert parallel at deepseek-v2 width
+    ds = get_config("deepseek-v2-236b")
+    p = tree_map(lambda a: a[0].to(bf16),
+                 materialize(moe.moe_specs(ds, 1), 0, "cuda"))
+    x = torch.randn((1, 2048, ds.d_model), dtype=bf16, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(20))
+    mesh = mesh_lib.Mesh((1, 1), ("data", "model"))
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True)
+    ctx = mesh_lib.make_context(mesh, 0, mesh_lib.groups(
+        mesh, 0, store=store, device="cuda"), ds)
+    xf = x.reshape(-1, ds.d_model)
+
+    def shards(n):
+        e = ds.num_experts // n
+        tot = sum(moe._local_expert_pass(
+            xf, p["router"], p["w_gate"][i * e:(i + 1) * e],
+            p["w_up"][i * e:(i + 1) * e], p["w_down"][i * e:(i + 1) * e],
+            ds, 1.25, i * e, e)[0] for i in range(n))
+        return tot.to(bf16).reshape(x.shape) + moe.dense_mlp(p["shared"], x)
+
+    with torch.no_grad():
+        want, aux = moe.moe_mlp(p, x, ds)
+        got, aux_s = moe.moe_mlp_sharded(p, x, ds, mesh=ctx)
+        bitwise = torch.equal(got, want) and torch.equal(aux, aux_s)
+        errs = {}
+        for n in (4, 8):
+            err = (shards(n).float() - want.float()).abs()
+            lim = TOL + TOL * want.float().abs()
+            errs[n] = (float(err.max()), bool((err <= lim).all()))
+        e8 = ds.num_experts // 8
+        t_plain = device_ms(torch, lambda: moe.moe_mlp(p, x, ds))
+        t_ep = device_ms(torch, lambda: moe.moe_mlp_sharded(p, x, ds,
+                                                            mesh=ctx))
+        t_shard = device_ms(torch, lambda: moe._local_expert_pass(
+            xf, p["router"], p["w_gate"][:e8], p["w_up"][:e8],
+            p["w_down"][:e8], ds, 1.25, 0, e8))
+    print(f"[sharded] 20.1 deepseek-v2 MoE (E 160, k 6, D 5120, F 1536, T "
+          f"2048, bf16): moe_mlp_sharded on a one-rank NCCL group bitwise "
+          f"equal to moe_mlp: {bitwise}; the sum of _local_expert_pass "
+          f"over 4 / 8 emulated shards (+ shared experts) max |err| "
+          f"{errs[4][0]:.3e} / {errs[8][0]:.3e} (limit 3e-2 + 3e-2 * |want|)"
+          f"; device time moe_mlp {dev_ms(t_plain)} ms, moe_mlp_sharded "
+          f"{dev_ms(t_ep)} ms, one of 8 shards' _local_expert_pass "
+          f"{dev_ms(t_shard)} ms ({card})", flush=True)
+    if not bitwise:
+        fail("moe_mlp_sharded on one rank is not bitwise moe_mlp")
+    if not (errs[4][1] and errs[8][1]):
+        fail(f"the expert shards' partials do not sum to moe_mlp: {errs}")
+    del p, x, xf, want, got, ctx, store
+    torch.cuda.empty_cache()
+
+    # 20.2: the sharded step at mesh (1, 1), granite-3-2b full width, fp32
+    cfg = get_config("granite-3-2b").replace(dtype="float32")
+    opt = OptConfig(lr=1e-3, warmup_steps=0)
+    run = RunConfig(attn_impl="auto", remat="block")
+    toks = torch.randint(0, cfg.vocab_size, (4, 512), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(20))
+    batch = {"tokens": toks.cuda(), "labels": toks.cuda()}
+    ref = smooth_attention(materialize(M.model_specs(cfg), 0, "cuda"), cfg)
+    loss_ref, _, grads = build_grad_fn(cfg, run)(ref, batch)
+    ref, moments, gnorm = apply_updates(opt, ref, grads, init_state(opt, ref))
+    loss_ref, scale = loss_ref.item(), min(1.0, opt.grad_clip / gnorm.item())
+    ref = tree_map(lambda a: a.cpu(), ref)
+    grads = tree_map(lambda a: a.cpu(), grads)
+    del moments  # nothing of the reference step stays on the card
+    torch.cuda.empty_cache()
+
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True)
+    ctx = mesh_lib.make_context(mesh, 0, mesh_lib.groups(
+        mesh, 0, store=store, device="cuda"), cfg)
+    params = smooth_attention(materialize(M.model_specs(cfg), 0, "cuda"),
+                              cfg)
+    state = S.zero_state(cfg, mesh, ctx.rules, opt, "cuda")
+    step = S.build_train_step(cfg, RunConfig(attn_impl="auto", remat="block",
+                                             shard=ctx), opt)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    real = D.trace(step, (params, state, batch), [])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    m = real.pop("out")[2]
+    ok_p, worst_p, n_eps, worst_eps = adam_close(
+        tree_items, params, ref, grads, scale=scale, lr=opt.lr)
+    loss = float(m["loss"])
+    del grads, ref
+    log = []
+    mctx = spmd.ShardContext(
+        mesh=mesh, rank=0, groups=mesh_lib.recording_groups(mesh, 0, log),
+        rules=ctx.rules, specs=ctx.specs)
+    meta_args = (S.abstract_params(cfg, mesh, ctx.rules),
+                 S.abstract_opt_state(cfg, mesh, ctx.rules, opt),
+                 {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                  for k, v in batch.items()})
+    meta = D.trace(S.build_train_step(cfg, RunConfig(
+        attn_impl="auto", remat="block", shard=mctx), opt), meta_args, log)
+    model_bytes = meta["argument_bytes"] + meta["temp_bytes"]
+    ratio = meta["temp_bytes"] / (peak - base)
+    print(f"[sharded] 20.2 granite-3-2b full width (40 layers) fp32, batch 4"
+          f" x seq 512, auto attention + block remat, mesh (1, 1): loss "
+          f"{loss:.6f} vs the unsharded step's {loss_ref:.6f}; updated params"
+          f" max |diff| {worst_p:.3e} (limit 2e-4 + 2e-4 * max |want| per "
+          f"leaf), {worst_eps:.3e} on the {n_eps} elements whose clipped "
+          f"gradient is below 100 * eps (limit 2 * lr + 2e-4)", flush=True)
+    print(f"[sharded] 20.2 meta dry run of the same step: argument bytes "
+          f"{meta['argument_bytes']} (real tensors {real['argument_bytes']})"
+          f", FLOPs {meta['flops']} (FlopCounterMode on the real step "
+          f"{real['flops']}); temp {meta['temp_bytes'] / 1e9:.3f} GB against"
+          f" the step's own peak {(peak - base) / 1e9:.3f} GB "
+          f"(max_memory_allocated {peak / 1e9:.3f} GB less "
+          f"{base / 1e9:.3f} GB allocated before the step): ratio "
+          f"{ratio:.4f}; argument + temp {model_bytes / 1e9:.3f} GB against "
+          f"the whole peak: {model_bytes / peak:.4f}; the "
+          f"meter on the real step: temp {real['temp_bytes'] / 1e9:.3f} GB;"
+          f" meta trace {meta['trace_s']:.1f} s, real step under the meter "
+          f"{real['trace_s']:.1f} s ({card})", flush=True)
+    if abs(loss - loss_ref) > FP32_TOL + FP32_TOL * abs(loss_ref) or \
+            not ok_p:
+        fail(f"the sharded step at (1, 1) and the unsharded step disagree: "
+             f"loss {loss} vs {loss_ref}, params {worst_p} ({worst_eps} "
+             f"where the gradient is below 100 * eps)")
+    if meta["argument_bytes"] != real["argument_bytes"] or \
+            meta["flops"] != real["flops"]:
+        fail("the meta dry run's argument bytes or FLOPs differ from the "
+             "real step's")
+    if not 0.85 <= ratio <= 1.15:
+        fail(f"the dry run's temp bytes are {ratio:.3f} x the step's own "
+             "peak on the card (limit 15%)")
+    del params, state, step, real, ctx, store
+    torch.cuda.empty_cache()
+
+    # 20.3: one dry-run record per slot family on the single-pod mesh
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
+        f"dryrun_{os.getpid()}"
+    try:
+        for arch, shape in (("granite-3-2b", "train_4k"),
+                            ("deepseek-v2-236b", "decode_32k"),
+                            ("musicgen-large", "prefill_32k"),
+                            ("jamba-1.5-large-398b", "train_4k")):
+            if not D.run_one(arch, shape, "single", out):
+                fail(f"dry run {arch} x {shape}: "
+                     f"{json.loads((out / f'{arch}__{shape}__single.json').read_text())['error']}")
+            r = json.loads((out / f"{arch}__{shape}__single.json")
+                           .read_text())
+            mem = r["full"]["memory"]
+            print(f"[sharded] 20.3 dry run {arch} x {shape} x single (16 x "
+                  f"16, rank 0 on meta): per-chip "
+                  f"{(mem['argument_bytes'] + mem['temp_bytes'] + mem['output_bytes']) / 2**30:.2f} GiB "
+                  f"(arguments {mem['argument_bytes'] / 2**30:.2f}), FLOPs "
+                  f"{r['derived']['flops']:.4e}, wire "
+                  f"{r['derived']['wire_bytes'] / 2**30:.3f} GiB, "
+                  f"{r['full']['n_collectives']} collectives, trace "
+                  f"{r['full']['trace_s']} s", flush=True)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    moved = {n: c for n, c in read_counts(torch, wrappers).items() if c}
+    if moved:
+        fail(f"phase 20 launched kernels: {moved}")
+    print(f"[sharded] no kernel launched; phase wall "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
@@ -3552,6 +3763,9 @@ def main() -> None:
 
     # 19. the kernels' contracts on the card, and the lint gate ------------------
     contracts_phase(torch, wrappers)
+
+    # 20. the sharded step and its dry run ----------------------------------------
+    sharded_phase(torch, wrappers)
 
     leaked = sorted(n for n in sys.modules
                     if n.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",

@@ -1,7 +1,7 @@
 """repro_torch.analysis: static analysis that proves the port's invariants
 before it runs, the twin of ``repro.analysis``.
 
-Three domain analyzers, each emitting
+Four domain analyzers, each emitting
 :class:`~repro_torch.analysis.findings.Finding` rows with stable
 fingerprints (``code:path:context``), so justified suppressions in
 ``tools/torch_lint_baseline.json`` survive line drift:
@@ -20,9 +20,9 @@ fingerprints (``code:path:context``), so justified suppressions in
   against the port's validators, ``HISTOGRAM_KEYS`` against emitted
   metrics, the goldens against the port's validators.
 
-JAX's fourth analyzer, ``mesh_axes`` (collective axis names bound by a
-mesh declaration), has no twin yet: the port names no mesh axes; it comes
-with the expert-parallel and mesh modules (ROADMAP Queue A, item 5).
+- :mod:`~repro_torch.analysis.mesh_axes` (MX1xx): axis names passed to a
+  group lookup against the axes the port's meshes declare, and
+  ``torch.distributed`` collectives issued with no ``group=``.
 
 ``tools/torch_lint.py`` is the gate; ``docs/torch_static_analysis.md`` is
 the rule catalogue.
@@ -36,11 +36,12 @@ from repro_torch.analysis.findings import (BASELINE_SCHEMA_ID,
                                            validate_findings)
 
 from repro_torch.analysis import determinism, kernel_contracts, \
-    schema_drift  # noqa: E402  (analyzer modules re-exported as namespaces)
+    mesh_axes, schema_drift  # noqa: E402  (re-exported as namespaces)
 
 ANALYZERS = {
     "kernel": kernel_contracts.analyze,
     "determinism": determinism.analyze,
+    "mesh": mesh_axes.analyze,
     "schema": schema_drift.analyze,
 }
 
@@ -57,6 +58,6 @@ def run_analyzers(root, names=None):
 __all__ = [
     "ANALYZERS", "BASELINE_SCHEMA_ID", "FINDINGS_SCHEMA_ID", "Finding",
     "apply_baseline", "determinism", "kernel_contracts", "load_baseline",
-    "make_baseline", "make_findings_payload", "run_analyzers",
+    "make_baseline", "make_findings_payload", "mesh_axes", "run_analyzers",
     "schema_drift", "validate_baseline", "validate_findings",
 ]

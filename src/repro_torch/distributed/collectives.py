@@ -37,35 +37,89 @@ from repro_torch.models.common import tree_items, tree_unflatten
 class Group:
     """This rank's handle on one process group: sum-collectives that block
     the host until the backend has taken the work (NCCL then orders the
-    caller's stream after it)."""
+    caller's stream after it).
 
-    def __init__(self, pg):
+    ``log`` (optional): a list each call appends one record to, ``{"op"``
+    (XLA's spelling), ``"operand_bytes"``, ``"result_bytes"``, ``"group"``
+    (the group's size)``}`` — what ``repro_torch.launch.wire`` prices, so
+    a real run's collectives can be held to a dry run's."""
+
+    def __init__(self, pg, log: Optional[list] = None):
         self.pg = pg
         self.size = pg.size()
         self.rank = pg.rank()
+        self.log = log
+
+    def _record(self, op: str, operand: torch.Tensor,
+                result: torch.Tensor) -> None:
+        if self.log is not None:
+            self.log.append({
+                "op": op, "dtype": str(operand.dtype).replace("torch.", ""),
+                "operand_bytes": operand.numel() * operand.element_size(),
+                "result_bytes": result.numel() * result.element_size(),
+                "group": self.size})
 
     @staticmethod
-    def _sum(opts_cls):
+    def _opts(opts_cls, op: str = "sum"):
         opts = opts_cls()
-        opts.reduceOp = dist.ReduceOp.SUM
+        opts.reduceOp = {"sum": dist.ReduceOp.SUM,
+                         "max": dist.ReduceOp.MAX}[op]
         return opts
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum over the group, in place."""
-        self.pg.allreduce([t], self._sum(dist.AllreduceOptions)).wait()
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Sum (or ``op="max"``) over the group, in place."""
+        self.pg.allreduce([t], self._opts(dist.AllreduceOptions, op)).wait()
+        self._record("all-reduce", t, t)
         return t
 
     def reduce_scatter(self, flat: torch.Tensor) -> torch.Tensor:
         """This rank's 1/size slice of the sum of every rank's ``flat``."""
         out = flat.new_empty(flat.numel() // self.size)
         self.pg._reduce_scatter_base(
-            out, flat, self._sum(dist.ReduceScatterOptions)).wait()
+            out, flat, self._opts(dist.ReduceScatterOptions)).wait()
+        self._record("reduce-scatter", flat, out)
         return out
 
     def all_gather(self, shard: torch.Tensor) -> torch.Tensor:
         """Every rank's ``shard``, concatenated in rank order."""
         out = shard.new_empty(shard.numel() * self.size)
         self.pg._allgather_base(out, shard).wait()
+        self._record("all-gather", shard, out)
+        return out
+
+
+class RecordingGroup(Group):
+    """A :class:`Group` that moves no byte: on ``meta`` tensors each call
+    returns an output of the right shape and logs the record a real group
+    would (the dry run's stand-in for JAX's placeholder devices)."""
+
+    def __init__(self, size: int, rank: int, log: Optional[list] = None):
+        self.pg = None
+        self.size = int(size)
+        self.rank = int(rank)
+        self.log = [] if log is None else log
+
+    @staticmethod
+    def _check(t: torch.Tensor) -> None:
+        if t.device.type != "meta":
+            raise ValueError("a RecordingGroup takes meta tensors only (it "
+                             f"moves no data), got one on {t.device}")
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        self._check(t)
+        self._record("all-reduce", t, t)
+        return t
+
+    def reduce_scatter(self, flat: torch.Tensor) -> torch.Tensor:
+        self._check(flat)
+        out = flat.new_empty(flat.numel() // self.size)
+        self._record("reduce-scatter", flat, out)
+        return out
+
+    def all_gather(self, shard: torch.Tensor) -> torch.Tensor:
+        self._check(shard)
+        out = shard.new_empty(shard.numel() * self.size)
+        self._record("all-gather", shard, out)
         return out
 
 

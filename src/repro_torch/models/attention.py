@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import spmd
 from repro_torch.models.common import ParamSpec, rms_norm, rope, softcap
 
 NEG_INF = -2.0e38
@@ -245,11 +246,35 @@ def _qkv_at(p, x, positions, cfg: ModelConfig):
             rope(k, positions, cfg.rope_theta), v)
 
 
+def local_kv(k, v, cfg: ModelConfig, head_offset: int, h_loc: int):
+    """The kv heads that q heads ``head_offset .. + h_loc`` read, for a
+    rank that holds those q heads and every kv head: q head h uses kv head
+    h // (H / KV).  Returns (k, v) whose head grouping matches the local q
+    heads (a slice where the groups line up, else one kv head per q
+    head)."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if h_loc == H:
+        return k, v
+    G = H // KV
+    lo = head_offset // G
+    if head_offset % G == 0 and h_loc % G == 0:
+        n = h_loc // G
+    elif G % h_loc == 0 and head_offset // G == (head_offset + h_loc - 1) // G:
+        n = 1
+    else:
+        idx = (head_offset + torch.arange(h_loc, device=k.device)) // G
+        return k.index_select(2, idx), v.index_select(2, idx)
+    return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+
+
 def gqa_forward(p, x, positions, cfg: ModelConfig, mixer: str, *,
-                impl="dense", kv_block=1024, q_block=2048):
+                impl="dense", kv_block=1024, q_block=2048, head_offset=0):
+    """``head_offset``: the first q head a rank holds where ``p["wq"]``
+    holds a slice of the heads (the caches keep every kv head)."""
     q, k, v = _qkv_at(p, x, positions, cfg)
+    ka, va = local_kv(k, v, cfg, head_offset, q.shape[2])
     out = attention(
-        q, k, v, positions, positions,
+        q, ka, va, positions, positions,
         scale=1.0 / np.sqrt(cfg.head_dim),
         window=_window_for(cfg, mixer),
         cap=cfg.attn_softcap,
@@ -501,6 +526,167 @@ def mla_decode(p, x, pos, cache, cfg: ModelConfig, mixer: str, *,
     out = torch.einsum("bshl,lhv->bshv", ctx, w_uv)
     return (torch.einsum("bshv,hvd->bsd", out, p["wo"]),
             {"ckv": ckv, "k_rope": krope})
+
+
+# ---------------------------------------------------------------------------
+# Decode over sequence-sharded caches (one rank of a mesh)
+# ---------------------------------------------------------------------------
+
+
+def _seq_shard(ctx, s_loc: int):
+    """(group, first global slot, global length) of this rank's ``kv_seq``
+    slice of ``s_loc`` slots."""
+    axes = ctx.rules["kv_seq"]
+    n = ctx.size(axes)
+    return ctx.group(axes), ctx.index(axes) * s_loc, s_loc * n
+
+
+def _ring_positions_at(pos, s_glob: int, window: int, lo: int, s_loc: int):
+    """:func:`_ring_positions` for global slots ``lo .. lo + s_loc``."""
+    ring = bool(window) and s_glob <= window
+    j = (lo + torch.arange(s_loc, device=pos.device))[None]
+    if ring:
+        return pos % s_glob, pos[:, None] - torch.remainder(pos[:, None] - j,
+                                                            s_glob)
+    return pos, j.expand(pos.shape[0], s_loc)
+
+
+def _owned_write(cache, new, wpos, lo: int):
+    """:func:`_cache_write` of global slot ``wpos`` into a slice that holds
+    slots ``lo .. lo + S_loc``: only the rank that owns a row's slot
+    writes it (the others rewrite what they hold)."""
+    dt = torch.promote_types(cache.dtype, new.dtype)
+    if dt != cache.dtype and cache.is_floating_point():
+        cache = cache.to(dt)
+    s_loc = cache.shape[1]
+    local = wpos.long() - lo
+    own = (local >= 0) & (local < s_loc)
+    li = local.clamp(0, s_loc - 1)
+    b_idx = torch.arange(cache.shape[0], device=cache.device)
+    val = new[:, 0].to(cache.dtype)
+    own = own.reshape((-1,) + (1,) * (val.dim() - 1))
+    cache[b_idx, li] = torch.where(own, val, cache[b_idx, li])
+    return cache
+
+
+def _combine(m, lsum, acc, ctx, s_group, heads_sharded: bool):
+    """Join every sequence shard's partial softmax (B, 1, H) max and sum
+    and (B, 1, H, d) unnormalised values, as B2's split-K combine joins
+    its blocks: rescale to the group's max, then sum.  With the heads
+    split over ``model`` and the sequence over ``model`` alone the sum is
+    a reduce-scatter onto this rank's heads; otherwise an all-reduce over
+    the sequence's group and this rank's heads.  Returns the normalised
+    (B, 1, H_loc, d) fp32 output."""
+    g_model = ctx.group("model")
+    big = spmd.all_reduce_max(m, s_group)
+    corr = torch.exp(m - big)
+    packed = torch.cat([acc * corr[..., None], (lsum * corr)[..., None]],
+                       dim=-1)
+    if heads_sharded and ctx.axes(ctx.rules["kv_seq"]) == ("model",):
+        packed = spmd.scatter_dim(packed, g_model, 2)
+    else:
+        packed = spmd.reduce_from(packed, s_group)
+        if heads_sharded:
+            packed = spmd.local_chunk(packed, g_model, 2)
+    return packed[..., :-1] / packed[..., -1:]
+
+
+def gqa_decode_sharded(p, x, pos, cache, cfg: ModelConfig, mixer: str, ctx):
+    """:func:`gqa_decode` as one rank of ``ctx``: x (B, 1, D) replicated
+    over ``model``, q heads (and ``wq``/``wo``) split over it where the
+    rules split them, the caches (B, S/n, KV, hd) this rank's ``kv_seq``
+    slice (n = ``model``, or data x model when the batch cannot cover the
+    data axes).
+
+    The q heads meet the sequence shards so: the step's q is all-gathered
+    over heads (every rank holds every kv head of its positions), each
+    rank runs a partial softmax over its slice for every head, and the
+    shards combine (:func:`_combine`) into this rank's heads for the
+    row-parallel ``wo``, whose output is all-reduced.  Only the rank that
+    owns ``pos`` writes it.  Plain PyTorch (the dry run's ``"dense"``);
+    int8 caches are dequantized per slice."""
+    g_model = ctx.group("model")
+    q, k, v = _qkv_at(p, x, pos[:, None], cfg)
+    heads_sharded = q.shape[2] != cfg.num_heads
+    if heads_sharded:
+        q = spmd.gather_dim(q, g_model, 2)
+    window = _window_for(cfg, mixer)
+    s_group, lo, s_glob = _seq_shard(ctx, cache["k"].shape[1])
+    wpos, k_pos = _ring_positions_at(pos, s_glob, window, lo,
+                                     cache["k"].shape[1])
+    if "k_scale" in cache:
+        new = {}
+        for name, val in (("k", k), ("v", v)):
+            vq, vs = quantize_kv(val)
+            new[name] = _owned_write(cache[name], vq, wpos, lo)
+            new[f"{name}_scale"] = _owned_write(cache[f"{name}_scale"], vs,
+                                                wpos, lo)
+        ck = dequantize_kv(new["k"], new["k_scale"], x.dtype)
+        cv = dequantize_kv(new["v"], new["v_scale"], x.dtype)
+    else:
+        new = {"k": _owned_write(cache["k"], k, wpos, lo),
+               "v": _owned_write(cache["v"], v, wpos, lo)}
+        ck, cv = new["k"], new["v"]
+    B, _, H, dk = q.shape
+    KV = ck.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, dk)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, ck).float() \
+        * (1.0 / np.sqrt(cfg.head_dim))
+    logits = softcap(logits, cfg.attn_softcap)
+    msk = _mask(pos[:, None], k_pos, window)[:, None, None]
+    logits = logits.masked_fill(~msk, NEG_INF)
+    m = logits.amax(dim=-1)  # (B, KV, G, 1)
+    pexp = torch.exp(logits - m[..., None])
+    acc = torch.einsum("bkgqs,bskd->bqkgd", pexp.to(cv.dtype), cv).float()
+    out = _combine(m.permute(0, 3, 1, 2).reshape(B, 1, H),
+                   pexp.sum(dim=-1).permute(0, 3, 1, 2).reshape(B, 1, H),
+                   acc.reshape(B, 1, H, cv.shape[-1]), ctx, s_group,
+                   heads_sharded)
+    y = torch.einsum("bshk,hkd->bsd", out.to(cv.dtype), p["wo"])
+    if heads_sharded:
+        y = spmd.reduce_from(y, g_model)
+    return y, new
+
+
+def mla_decode_sharded(p, x, pos, cache, cfg: ModelConfig, mixer: str, ctx):
+    """:func:`mla_decode` as one rank of ``ctx``, over ``ckv``/``k_rope``
+    slices of the sequence: the absorbed query (and its rope part) is
+    all-gathered over heads, each rank attends in the latent space over
+    its slice, and the shards combine (:func:`_combine`) into this rank's
+    heads' latent context for ``w_uv`` and the row-parallel ``wo``."""
+    g_model = ctx.group("model")
+    nope = cfg.qk_nope_head_dim
+    q_nope, q_rope, ckv_new, k_rope_new = _mla_qkv(p, x, pos[:, None], cfg)
+    heads_sharded = q_nope.shape[2] != cfg.num_heads
+    w_uk = p["wkv_up"][..., :nope]
+    w_uv = p["wkv_up"][..., nope:]
+    q_abs = torch.einsum("bshn,lhn->bshl", q_nope, w_uk)
+    if heads_sharded:
+        q_abs = spmd.gather_dim(q_abs, g_model, 2)
+        q_rope = spmd.gather_dim(q_rope, g_model, 2)
+    window = _window_for(cfg, mixer)
+    s_group, lo, s_glob = _seq_shard(ctx, cache["ckv"].shape[1])
+    wpos, k_pos = _ring_positions_at(pos, s_glob, window, lo,
+                                     cache["ckv"].shape[1])
+    ckv = _owned_write(cache["ckv"], ckv_new, wpos, lo)
+    krope = _owned_write(cache["k_rope"], k_rope_new, wpos, lo)
+    logits = (
+        torch.einsum("bshl,bkl->bhsk", q_abs, ckv)
+        + torch.einsum("bshr,bkr->bhsk", q_rope, krope)
+    ).float() * _mla_scale(cfg)
+    logits = softcap(logits, cfg.attn_softcap)
+    logits = logits.masked_fill(~_mask(pos[:, None], k_pos, window)[:, None],
+                                NEG_INF)
+    m = logits.amax(dim=-1)  # (B, H, 1)
+    pexp = torch.exp(logits - m[..., None])
+    lat = torch.einsum("bhsk,bkl->bshl", pexp.to(ckv.dtype), ckv).float()
+    ctxv = _combine(m.transpose(1, 2), pexp.sum(dim=-1).transpose(1, 2), lat,
+                    ctx, s_group, heads_sharded)
+    out = torch.einsum("bshl,lhv->bshv", ctxv.to(ckv.dtype), w_uv)
+    y = torch.einsum("bshv,hvd->bsd", out, p["wo"])
+    if heads_sharded:
+        y = spmd.reduce_from(y, g_model)
+    return y, {"ckv": ckv, "k_rope": krope}
 
 
 # ---------------------------------------------------------------------------

@@ -12,13 +12,23 @@ core on the CUDA scan (``impl="kernel"``) exactly when
 ``run.attn_impl`` is ``"kernel"``, the serving path, else on the plain
 ``ssd_chunked`` (JAX's ``"auto"``).  :func:`slot_extend` (chunked
 prefill) takes GQA slots only, as JAX's does; ``model.supports_extend``
-keeps other stacks on whole-prompt prefill."""
+keeps other stacks on whole-prompt prefill.
+
+With ``run.shard`` (a ``distributed.spmd.ShardContext``) a slot runs as
+one rank of the mesh, on its leaves' local shapes: the norms on the
+residual's local tokens, the mixer and the MLP between the layout
+transitions :func:`spmd.enter` and :func:`spmd.leave` (the identity
+without a context), the MoE MLP expert-parallel over ``model``
+(``moe.moe_mlp_sharded``, where the rules put ``experts``), decode
+attention over sequence-sharded caches, and the Mamba block split over
+heads and channels (``ssm.ssm_forward``'s ``ctx``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 from repro_torch.configs.base import ModelConfig, SlotSpec
+from repro_torch.distributed import spmd
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -32,9 +42,14 @@ REMATS = ("none", "block")
 
 @dataclass
 class RunConfig:
-    """Runtime (non-architecture) knobs: the JAX package's, less the
-    sharding, expert-parallel and dry-run fields, which nothing in the
-    port reads."""
+    """Runtime (non-architecture) knobs: the JAX package's.  JAX's
+    ``act_sharding``, ``grad_shardings`` and ``logit_sharding`` (GSPMD
+    constraints) are the explicit layout a ``shard`` context runs
+    (``distributed.spmd``), and ``moe_mesh``/``moe_axis`` are that
+    context's expert parallelism over ``model``, where the rules put the
+    experts; ``unroll_layers`` has no counterpart, since
+    an eager trace counts every layer; ``cache_scatter`` has none either,
+    since the port writes caches by index."""
 
     attn_impl: str = "dense"  # dense | chunked | auto | kernel (JAX's pallas)
     remat: str = "block"  # none | block (recompute each cycle in backward)
@@ -43,6 +58,8 @@ class RunConfig:
     q_block: int = 2048  # chunked attention's query block
     bf16_grads: bool = False  # mixed precision: grads computed in bf16
     capacity_factor: float = 1.25  # MoE per-expert capacity factor
+    # one rank of a mesh (distributed.spmd.ShardContext); None: one device
+    shard: Any = None
 
     def __post_init__(self):
         if self.remat not in REMATS:
@@ -99,33 +116,67 @@ def _ssm_impl(run: RunConfig) -> str:
     return "kernel" if run.attn_impl == "kernel" else "auto"
 
 
+def _mixer_partial(p, cfg: ModelConfig, slot: SlotSpec) -> bool:
+    """Whether a mixer's output is a partial sum over ``model`` (its q
+    heads or inner channels split); replicated attention computes all of
+    it."""
+    if slot.mixer == "mamba":
+        return True  # w_out's rows split on inner
+    w = p["wq_up"] if slot.mixer.startswith("mla") else p["wq"]
+    return w.shape[-2] != cfg.num_heads
+
+
 def _mixer_forward(p, h, positions, cfg: ModelConfig, slot: SlotSpec,
                    run: RunConfig):
+    ctx = run.shard
     if slot.mixer == "mamba":
-        return ssm_lib.ssm_forward(p, h, positions, cfg, impl=_ssm_impl(run))
-    fn = attn.mla_forward if slot.mixer.startswith("mla") else attn.gqa_forward
-    return fn(p, h, positions, cfg, slot.mixer, impl=run.attn_impl,
-              kv_block=run.kv_block, q_block=run.q_block)
+        return ssm_lib.ssm_forward(p, h, positions, cfg, impl=_ssm_impl(run),
+                                   ctx=ctx)
+    kw = dict(impl=run.attn_impl, kv_block=run.kv_block,
+              q_block=run.q_block)
+    if slot.mixer.startswith("mla"):
+        return attn.mla_forward(p, h, positions, cfg, slot.mixer, **kw)
+    h_loc = p["wq"].shape[-2]
+    off = 0 if h_loc == cfg.num_heads else ctx.index("model") * h_loc
+    return attn.gqa_forward(p, h, positions, cfg, slot.mixer, head_offset=off,
+                            **kw)
 
 
-def _mlp_forward(p, h, cfg: ModelConfig, slot: SlotSpec, run: RunConfig):
-    """(out, aux): aux is 0.0 for the dense MLP."""
+def _mlp_forward(p, h, cfg: ModelConfig, slot: SlotSpec, run: RunConfig,
+                 seq: bool = False):
+    """(out, aux): aux is 0.0 for the dense MLP.  Under ``run.shard`` the
+    dense MLP is ff-sharded between ``enter`` and ``leave`` and the MoE
+    expert-parallel over the rank's groups; ``seq``: ``h`` is the
+    residual's sequence shard (else all of this rank's tokens)."""
+    ctx = run.shard
+
+    def dense(pd, x):
+        return spmd.leave(moe_lib.dense_mlp(pd, spmd.enter(x, ctx, seq)),
+                          ctx, seq)
+
+    def moe(pm):
+        if ctx is None:
+            return moe_lib.moe_mlp(pm, h, cfg,
+                                   capacity_factor=run.capacity_factor)
+        return moe_lib.moe_mlp_sharded(pm, h, cfg, mesh=ctx,
+                                       capacity_factor=run.capacity_factor,
+                                       seq_sharded=seq)
+
     if slot.mlp == "dense":
-        return moe_lib.dense_mlp(p, h), 0.0
+        return dense(p, h), 0.0
     if slot.mlp == "moe":
-        return moe_lib.moe_mlp(p, h, cfg,
-                               capacity_factor=run.capacity_factor)
+        return moe(p)
     # moe_dense: arctic's dense residual MLP in parallel with the MoE
-    y_moe, aux = moe_lib.moe_mlp(p["moe"], h, cfg,
-                                 capacity_factor=run.capacity_factor)
-    return moe_lib.dense_mlp(p["dense"], h) + y_moe, aux
+    y_moe, aux = moe(p["moe"])
+    return dense(p["dense"], h) + y_moe, aux
 
 
-def _mlp_residual(p, h, cfg: ModelConfig, slot: SlotSpec, run: RunConfig):
+def _mlp_residual(p, h, cfg: ModelConfig, slot: SlotSpec, run: RunConfig,
+                  seq: bool = False):
     if "mlp_norm" not in p:
         return h, 0.0
     u = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
-    u, aux = _mlp_forward(p["mlp"], u, cfg, slot, run)
+    u, aux = _mlp_forward(p["mlp"], u, cfg, slot, run, seq)
     if cfg.use_post_norm:
         u = rms_norm(u, p["mlp_post_norm"], cfg.norm_eps)
     return h + u, aux
@@ -138,13 +189,22 @@ def _mlp_residual(p, h, cfg: ModelConfig, slot: SlotSpec, run: RunConfig):
 
 def slot_forward(p, h, positions, cfg: ModelConfig, slot: SlotSpec,
                  run: RunConfig):
-    """Returns (h, cache, aux_loss)."""
+    """Returns (h, cache, aux_loss).  Under ``run.shard`` ``h`` is this
+    rank's (B/dp, S/tp, D) residual shard under sequence parallelism,
+    ``positions`` the whole sequence's, and an attention slot's caches
+    come out as this rank's ``kv_seq`` slice."""
     check_slot(slot)
+    ctx = run.shard
+    seq = ctx is not None and ctx.seq_parallel
     u = rms_norm(h, p["mixer_norm"], cfg.norm_eps)
-    u, cache = _mixer_forward(p["mixer"], u, positions, cfg, slot, run)
+    u, cache = _mixer_forward(p["mixer"], spmd.enter(u, ctx, seq), positions,
+                              cfg, slot, run)
+    u = spmd.leave(u, ctx, seq, partial=_mixer_partial(p["mixer"], cfg, slot))
+    if ctx is not None and slot.mixer != "mamba":
+        cache = {k: spmd.local_seq(v, ctx) for k, v in cache.items()}
     if cfg.use_post_norm:
         u = rms_norm(u, p["mixer_post_norm"], cfg.norm_eps)
-    h, aux = _mlp_residual(p, h + u, cfg, slot, run)
+    h, aux = _mlp_residual(p, h + u, cfg, slot, run, seq)
     return h, cache, aux
 
 
@@ -156,15 +216,22 @@ def slot_forward(p, h, positions, cfg: ModelConfig, slot: SlotSpec,
 def slot_decode(p, h, pos, cache, cfg: ModelConfig, slot: SlotSpec,
                 run: RunConfig, s_max: Optional[int] = None):
     """``s_max``: the length the caches were placed for (a GQA slot's
-    decode route, ``attention.decode_impl``)."""
+    decode route, ``attention.decode_impl``).  Under ``run.shard`` ``h``
+    (B/dp, 1, D) is replicated over ``model`` and the attention caches
+    are this rank's sequence slices."""
     check_slot(slot)
+    ctx = run.shard
     u = rms_norm(h, p["mixer_norm"], cfg.norm_eps)
+    mla = slot.mixer.startswith("mla")
     if slot.mixer == "mamba":
-        u, new_cache = ssm_lib.ssm_decode(p["mixer"], u, pos, cache, cfg)
+        u, new_cache = ssm_lib.ssm_decode(p["mixer"], u, pos, cache, cfg, ctx)
         for k, v in new_cache.items():  # in place, as the attention writes
             cache[k].copy_(v)
         new_cache = cache
-    elif slot.mixer.startswith("mla"):
+    elif ctx is not None:
+        fn = attn.mla_decode_sharded if mla else attn.gqa_decode_sharded
+        u, new_cache = fn(p["mixer"], u, pos, cache, cfg, slot.mixer, ctx)
+    elif mla:
         u, new_cache = attn.mla_decode(p["mixer"], u, pos, cache, cfg,
                                        slot.mixer, impl=run.attn_impl)
     else:

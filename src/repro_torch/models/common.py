@@ -135,6 +135,46 @@ def param_count(specs) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Sharding: logical axes -> mesh axes -> per-rank shapes
+# ---------------------------------------------------------------------------
+
+
+def _spec_axes(spec: ParamSpec, rules):
+    return tuple(rules.get(a) if a is not None else None for a in spec.axes)
+
+
+def partition_specs(specs, rules):
+    """Map logical axes to mesh axes via ``rules``: per leaf, a tuple with
+    one entry per dim (a mesh axis, a tuple of them, or None), JAX's
+    ``PartitionSpec``."""
+    return tree_map(lambda s: _spec_axes(s, rules), specs)
+
+
+def local_shape(spec: ParamSpec, rules, mesh) -> Tuple[int, ...]:
+    """One rank's shape of ``spec``'s tensor on ``mesh``
+    (``launch.mesh.Mesh``): each dim mapped to mesh axes divided by their
+    size.  A division that is not exact raises ``ValueError``, where
+    GSPMD would refuse the sharding."""
+    out = []
+    for dim, axes, name in zip(spec.shape, _spec_axes(spec, rules),
+                               spec.axes):
+        n = mesh.axis_size(axes)
+        if dim % n:
+            raise ValueError(f"dim {name!r} of {spec.shape} ({dim}) does not "
+                             f"divide over mesh axes {axes} ({n})")
+        out.append(dim // n)
+    return tuple(out)
+
+
+def abstractify(specs, mesh, rules, dtype_override: Optional[str] = None):
+    """Meta tensors of each leaf's per-rank shape (JAX's ShapeDtypeStructs
+    with shardings): nothing is allocated."""
+    return tree_map(lambda s: torch.empty(
+        local_shape(s, rules, mesh),
+        dtype=torch_dtype(dtype_override or s.dtype), device="meta"), specs)
+
+
+# ---------------------------------------------------------------------------
 # Numerics
 # ---------------------------------------------------------------------------
 
@@ -153,10 +193,16 @@ def smooth_attention(params, cfg):
     return params
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             mean_of: Optional[Callable] = None) -> torch.Tensor:
+    """``mean_of``: where ``x`` holds one rank's equal slice of the
+    normalised dim, the mean over the ranks of each one's mean of squares
+    (``distributed.spmd.psum_mean`` over their group)."""
     dt = x.dtype
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    if mean_of is not None:
+        var = mean_of(var)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.float())).to(dt)
 

@@ -26,6 +26,13 @@ image-prefix model (llava) takes ``batch["image_embeds"]`` (B, n_img,
 D) before the text.  ``extend_step`` appends a chunk of prompt tokens to
 linear caches (chunked prefill), on attention-only stacks
 (``supports_extend``), as JAX's.
+
+With ``run.shard`` (a ``distributed.spmd.ShardContext``) ``forward``,
+``loss_fn`` and ``decode_step`` run as one rank of a mesh, on the
+leaves' local shapes (``launch/steps.py`` builds the steps): the
+vocab-parallel embedding and LM head, the residual sequence-sharded over
+``model``, FSDP's per-layer gather, and a loss whose gradient summed over
+the ranks is the whole batch's.  Without it, every path is the one above.
 """
 from __future__ import annotations
 
@@ -36,12 +43,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, SlotSpec
+from repro_torch.distributed import spmd
 from repro_torch.models.blocks import (RunConfig, check_slot,
                                        slot_cache_specs, slot_decode,
                                        slot_extend, slot_forward, slot_specs)
-from repro_torch.models.common import (ParamSpec, cross_entropy, materialize,
-                                       rms_norm, softcap, torch_dtype,
-                                       tree_map)
+from repro_torch.models.common import (ParamSpec, cross_entropy,
+                                       local_shape, materialize, rms_norm,
+                                       softcap, torch_dtype, tree_map)
 
 
 def prelude_slot(cfg: ModelConfig) -> SlotSpec:
@@ -143,8 +151,10 @@ def embed_tokens(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     return h.to(torch_dtype(cfg.dtype))
 
 
-def lm_logits(params, h, cfg: ModelConfig):
-    """(B,S,V) logits, or (B,S,K,V) for a K-codebook model."""
+def lm_logits(params, h, cfg: ModelConfig, v_lo: int = 0):
+    """(B,S,V) logits, or (B,S,K,V) for a K-codebook model.  ``v_lo``: the
+    first vocab id of the head's columns, where they are one rank's slice
+    of the vocabulary."""
     if cfg.num_codebooks:
         w = (params["embed"].transpose(1, 2) if cfg.tie_embeddings
              else params["lm_head"])
@@ -153,8 +163,8 @@ def lm_logits(params, h, cfg: ModelConfig):
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         logits = h @ w
     if cfg.padded_vocab != cfg.vocab_size:  # mask padding columns
-        valid = torch.arange(cfg.padded_vocab, device=h.device) < cfg.vocab_size
-        logits = logits.masked_fill(~valid, -1e30)
+        cols = v_lo + torch.arange(logits.shape[-1], device=h.device)
+        logits = logits.masked_fill(~(cols < cfg.vocab_size), -1e30)
     return softcap(logits, cfg.logit_softcap)
 
 
@@ -212,6 +222,9 @@ def run_cycles(slots, h, positions, cfg: ModelConfig, run: RunConfig,
         pattern = [(f"slot{i}", slot) for i, slot in enumerate(cfg.pattern)]
 
     def cycle(h, layer, aux):
+        if run.shard is not None:  # FSDP: this cycle's leaves, gathered
+            layer = {n: spmd.fsdp_gather(layer[n], run.shard.layer_spec(n),
+                                         run.shard, 1) for n in layer}
         caches = {}
         for n, slot in pattern:
             h, caches[n], a = slot_forward(layer[n], h, positions, cfg, slot,
@@ -273,30 +286,50 @@ def masked_loss(logits, labels, aux, aux_weight: float = AUX_WEIGHT):
 
 
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            run: RunConfig, with_cache: bool = False):
+            run: RunConfig, with_cache: bool = False, last_only: bool = False):
     """Full-sequence forward over ``batch["tokens"]`` (B,S) or (B,S,K),
     after ``batch["image_embeds"]`` (B,n_img,D) where given.  Returns
     (logits, caches, aux_loss); caches are stacked (cycles, B, S, ...) per
-    slot (and (first_k_dense, B, S, ...) under ``prelude``)."""
+    slot (and (first_k_dense, B, S, ...) under ``prelude``).  Under
+    ``run.shard`` the logits are this rank's vocab columns, and
+    ``last_only`` gives the last position's alone (prefill)."""
     check_ported(cfg)
     params = cast_params(params, cfg)
-    h = embed_tokens(params, batch, cfg)
-    positions = positions_of(h)
+    ctx = run.shard
+    if ctx is None:
+        h = embed_tokens(params, batch, cfg)
+        positions = positions_of(h)
+    else:
+        top = _top_leaves(params, ctx)
+        h = _embed_sharded(top, batch, cfg, ctx, ctx.seq_parallel)
+        s_full = batch["tokens"].shape[1] + (
+            batch["image_embeds"].shape[1] if "image_embeds" in batch else 0)
+        positions = torch.arange(s_full, device=h.device)[None].expand(
+            h.shape[0], s_full)
     h, pre = run_prelude(params, h, positions, cfg, run, with_cache)
     h, per_cycle, aux = run_cycles(params["slots"], h, positions, cfg, run,
                                    main_cycles(cfg), with_cache)
-    logits = head_logits(params, h, cfg)
+    if ctx is None:
+        logits = head_logits(params, h, cfg)
+    else:
+        h = rms_norm(h, top["final_norm"], cfg.norm_eps)
+        h = (spmd.last_token(h, ctx, ctx.seq_parallel) if last_only
+             else spmd.enter(h, ctx, ctx.seq_parallel))
+        logits = _logits_sharded(top, h, cfg, ctx)
     if not with_cache:
         return logits, None, aux
     if per_cycle:
         caches = {"slots": _stack_caches(per_cycle)}
     else:  # no cycle (a reduced config that is all prelude): zero-size
         # leaves, as JAX's scan over zero cycles gives
-        B, S = h.shape[:2]
+        B, S = positions.shape
+        shape_of = (lambda sp: sp.shape) if ctx is None else (
+            lambda sp: local_shape(sp, ctx.rules, ctx.mesh))
         caches = {"slots": tree_map(
-            lambda sp: torch.zeros(sp.shape, dtype=torch_dtype(sp.dtype),
+            lambda sp: torch.zeros(shape_of(sp), dtype=torch_dtype(sp.dtype),
                                    device=h.device),
-            cache_specs(cfg, B, S, cfg.dtype)["slots"])}
+            cache_specs(cfg, B * (1 if ctx is None else ctx.size(
+                ctx.rules["batch"])), S, cfg.dtype)["slots"])}
     if cfg.first_k_dense:
         caches["prelude"] = _stack_caches(pre)["prelude"]
     return logits, caches, aux
@@ -314,8 +347,72 @@ def loss_fn(params, batch, cfg: ModelConfig, run: RunConfig,
         pad = labels.new_full(labels.shape[:1] + (n_img,) + labels.shape[2:],
                               -1)
         labels = torch.cat([pad, labels], dim=1)
+    if run.shard is not None:
+        return _loss_sharded(logits, labels, aux, aux_weight, cfg, run.shard)
     loss, ce = masked_loss(logits, labels, aux, aux_weight)
     return loss, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# One rank of a mesh (run.shard)
+# ---------------------------------------------------------------------------
+
+
+def _top_leaves(params, ctx):
+    """The embedding, the head and the final norm, FSDP-gathered."""
+    keys = [k for k in ("embed", "lm_head", "final_norm") if k in params]
+    return spmd.fsdp_gather({k: params[k] for k in keys},
+                            {k: ctx.specs[k] for k in keys}, ctx)
+
+
+def _embed_sharded(top, batch, cfg: ModelConfig, ctx, seq: bool):
+    """:func:`embed_tokens` over vocab-sharded tables: each rank looks up
+    the tokens in its rows (zero elsewhere; an image prefix on model rank
+    0 alone), and ``spmd.leave`` sums the partials onto the residual's
+    layout (a reduce-scatter over the sequence under ``seq``)."""
+    table, tokens = top["embed"], batch["tokens"]
+    v_lo = spmd.vocab_lo(ctx, table.shape[-2])
+    if cfg.num_codebooks:
+        h = spmd.embed_partial(table[0], tokens[..., 0], v_lo)
+        for k in range(1, cfg.num_codebooks):
+            h = h + spmd.embed_partial(table[k], tokens[..., k], v_lo)
+    else:
+        h = spmd.embed_partial(table, tokens, v_lo)
+    if "image_embeds" in batch:
+        img = batch["image_embeds"].to(h.dtype)
+        if ctx.index("model"):
+            img = torch.zeros_like(img)
+        h = torch.cat([img, h], dim=1)
+    h = spmd.leave(h, ctx, seq)
+    if cfg.scale_embed:
+        h = h * np.sqrt(cfg.d_model)
+    return h.to(torch_dtype(cfg.dtype))
+
+
+def _logits_sharded(top, h, cfg: ModelConfig, ctx):
+    """:func:`lm_logits` on this rank's vocab columns (h replicated over
+    ``model``): (B,S,V/tp), or (B,S,K,V/tp)."""
+    return lm_logits(top, h, cfg, spmd.vocab_lo(ctx, top["embed"].shape[-2]))
+
+
+def _loss_sharded(logits, labels, aux, aux_weight: float, cfg: ModelConfig,
+                  ctx):
+    """One rank's share of the loss.  Returns (objective, metrics): the
+    objective is this rank's CE sum over the global token count (its
+    vocab columns differentiated, Megatron's form) plus the weighted aux,
+    whose gradients summed over the ranks are the whole batch's; the
+    metrics hold the whole batch's ``loss``, ``ce`` and ``aux``."""
+    v_lo = spmd.vocab_lo(ctx, logits.shape[-1])
+    nll = spmd.vocab_parallel_nll(logits.float(), torch.clamp(labels, min=0),
+                                  v_lo, ctx)
+    mask = (labels >= 0).float()
+    g_batch = ctx.group(ctx.rules["batch"])
+    count = spmd.reduce_from(torch.sum(mask), g_batch)
+    ce = torch.sum(nll * mask) / torch.clamp(count, min=1.0)
+    ce_all = spmd.reduce_from(ce.detach(), g_batch)
+    aux_all = aux.detach() if torch.is_tensor(aux) else aux
+    return ce + aux_weight * aux, {"ce": ce_all, "aux": aux_all,
+                                   "loss": ce_all + aux_weight * aux_all}
 
 
 # ---------------------------------------------------------------------------
@@ -342,7 +439,18 @@ def decode_step(params, tokens: torch.Tensor, pos: torch.Tensor, caches,
     JAX's scatter write keeps them."""
     check_ported(cfg)
     params = cast_params(params, cfg)
-    h = embed_tokens(params, {"tokens": tokens}, cfg)
+    ctx = run.shard
+    if ctx is None:
+        h = embed_tokens(params, {"tokens": tokens}, cfg)
+    else:
+        top = _top_leaves(params, ctx)
+        h = _embed_sharded(top, {"tokens": tokens}, cfg, ctx, seq=False)
+
+    def layer(name, tree, i):
+        lp = _layer(tree, i)
+        if ctx is not None:
+            lp = spmd.fsdp_gather(lp, ctx.layer_spec(name), ctx, 1)
+        return lp
 
     def widen(tree):
         if "k_scale" in tree:
@@ -358,14 +466,17 @@ def decode_step(params, tokens: torch.Tensor, pos: torch.Tensor, caches,
         new["prelude"] = widen(caches["prelude"])
         pre = prelude_slot(cfg)
         for i in range(cfg.first_k_dense):
-            h, _ = slot_decode(_layer(params["prelude"], i), h, pos,
-                               _layer(new["prelude"], i), cfg, pre, run,
+            h, _ = slot_decode(layer("prelude", params["prelude"], i), h,
+                               pos, _layer(new["prelude"], i), cfg, pre, run,
                                s_max)
     for i in range(main_cycles(cfg)):
         for n, slot in zip(slot_names, cfg.pattern):
-            h, _ = slot_decode(_layer(params["slots"][n], i), h, pos,
+            h, _ = slot_decode(layer(n, params["slots"][n], i), h, pos,
                                _layer(new["slots"][n], i), cfg, slot, run,
                                s_max)
+    if ctx is not None:
+        h = rms_norm(h, top["final_norm"], cfg.norm_eps)
+        return _logits_sharded(top, h, cfg, ctx), new
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(params, h, cfg)
     return logits, new

@@ -1,7 +1,10 @@
 """Mixture-of-Experts MLP with sort-based capacity dispatch and the dense
 SwiGLU MLP (the port of ``repro.models.moe``; arctic's parallel dense +
-MoE form is composed in ``blocks.py``, as in JAX; the expert-parallel
-``moe_mlp_sharded`` is not ported, ROADMAP Queue A's last item).
+MoE form is composed in ``blocks.py``, as in JAX), and its expert-parallel
+form: :func:`_local_expert_pass` (the tokens through one shard's
+experts) and :func:`moe_mlp_sharded` (JAX's ``shard_map`` body over the
+port's ``Group``s: an all-gather of the tokens, the local experts, a
+reduce-scatter of the partial sums).
 
 Dispatch is gather/scatter, not a one-hot einsum: assignments are sorted
 by expert (stable), each expert takes at most ``C`` of them into an
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import spmd
 from repro_torch.models.common import ParamSpec, swish
 
 
@@ -96,56 +100,113 @@ def route(p, xf: torch.Tensor, cfg: ModelConfig, capacity_factor: float):
     keep = pos < C
     slot = torch.where(keep, se * C + pos, torch.full_like(se, E * C))
     return {"w": w, "idx": idx, "aux": aux, "C": C, "order": order,
-            "slot": slot, "keep": keep, "sw": sw}
+            "slot": slot, "keep": keep, "sw": sw, "se": se}
 
 
 def moe_mlp(p, x, cfg: ModelConfig, *, capacity_factor: float = 1.25):
     """x (B, S, D) -> ((B, S, D), aux); sort-based dispatch with
-    per-expert capacity ``C = max(int(cf * T * K / E) + 1, 4)``.
+    per-expert capacity ``C = max(int(cf * T * K / E) + 1, 4)``: every
+    expert's pass (:func:`_local_expert_pass` over all E)."""
+    B, S, D = x.shape
+    out, aux = _local_expert_pass(
+        x.reshape(B * S, D), p["router"], p["w_gate"], p["w_up"],
+        p["w_down"], cfg, capacity_factor, 0, cfg.num_experts)
+    out = out.to(x.dtype).reshape(B, S, D)
+    if cfg.num_shared_experts:
+        out = out + dense_mlp(p["shared"], x)
+    return out, aux
+
+
+def _local_expert_pass(xf, router_w, wg, wu, wd, cfg: ModelConfig,
+                       capacity_factor: float, e_lo: int, e_loc: int):
+    """Tokens xf (T, D) through the local experts ``[e_lo, e_lo + e_loc)``
+    only (``wg``/``wu``/``wd`` hold those e_loc experts).  Returns
+    (partial_out (T, D) fp32, aux); the caller sums the partials across
+    expert shards.  Every token is routed over all E experts and keeps
+    JAX's capacity, so the shards' partials sum to :func:`moe_mlp`'s.
 
     Deterministic where JAX's literal form is not on the card:
 
     * the assignments' inputs are ``xf`` expanded K times and permuted
       (JAX's ``xf[st]``, whose backward would accumulate K duplicates a
       token with atomics); the permutation's backward hits each row once;
-    * the dispatch writes each kept assignment to its own buffer row;
-      only the drop bin is written twice, and it is cut away;
+    * the dispatch writes each kept local assignment to its own buffer
+      row; only the drop bin is written twice, and it is cut away;
     * the combine gathers each token's K weighted rows (a permutation)
       and adds them in ascending expert order from fp32 zeros: the order
       XLA's ``.at[st].add`` applies them in on the CPU.  The drop row of
-      the expert output stays a constant zero row, as in JAX.
+      the expert output stays a constant zero row, as in JAX, and an
+      assignment to another shard's expert adds that zero.
     """
-    B, S, D = x.shape
-    E, K = cfg.num_experts, cfg.top_k
-    T = B * S
-    xf = x.reshape(T, D)
-    r = route(p, xf, cfg, capacity_factor)
-    C, order, slot, keep = r["C"], r["order"], r["slot"], r["keep"]
+    T, D = xf.shape
+    K = cfg.top_k
+    r = route({"router": router_w}, xf, cfg, capacity_factor)
+    C, order, se = r["C"], r["order"], r["se"]
+    local = (se >= e_lo) & (se < e_lo + e_loc) & r["keep"]
+    slot = torch.where(local, r["slot"] - e_lo * C,
+                       torch.full_like(se, e_loc * C))
 
     xs = xf[:, None].expand(T, K, D).reshape(T * K, D)[order]
-    buf = xf.new_zeros((E * C + 1, D)).index_put((slot,), xs)
-    h = buf[: E * C].reshape(E, C, D)
+    buf = xf.new_zeros((e_loc * C + 1, D)).index_put((slot,), xs)
+    h = buf[: e_loc * C].reshape(e_loc, C, D)
     y = torch.einsum(
         "ecf,efd->ecd",
-        swish(torch.einsum("ecd,edf->ecf", h, p["w_gate"]))
-        * torch.einsum("ecd,edf->ecf", h, p["w_up"]),
-        p["w_down"])
-    y = torch.cat([y.reshape(E * C, D), y.new_zeros((1, D))], dim=0)
+        swish(torch.einsum("ecd,edf->ecf", h, wg))
+        * torch.einsum("ecd,edf->ecf", h, wu),
+        wd)
+    y = torch.cat([y.reshape(e_loc * C, D), y.new_zeros((1, D))], dim=0)
 
     # combine: v[i] is sorted assignment i's weighted output (fp32); a
     # token's assignments sit at the sorted positions inv[t*K:(t+1)*K],
     # whose ascending order is ascending expert order
-    v = (y[slot] * torch.where(keep, r["sw"], 0.0)[:, None]).float()
+    v = (y[slot] * torch.where(local, r["sw"], 0.0)[:, None]).float()
     inv = torch.empty_like(order)
     inv[order] = torch.arange(T * K, device=order.device)
     v_tok = v[torch.sort(inv.reshape(T, K), dim=-1).values]  # (T, K, D)
-    out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    out = torch.zeros((T, D), dtype=torch.float32, device=xf.device)
     for j in range(K):
         out = out + v_tok[:, j]
-    out = out.to(x.dtype).reshape(B, S, D)
-    if cfg.num_shared_experts:
-        out = out + dense_mlp(p["shared"], x)
     return out, r["aux"]
+
+
+def moe_mlp_sharded(p, x, cfg: ModelConfig, *, mesh, axis: str = "model",
+                    capacity_factor: float = 1.25, seq_sharded: bool = True):
+    """Expert-parallel MoE as one rank (JAX's ``moe_mlp_sharded``, its
+    ``shard_map`` body written over the port's groups).
+
+    ``mesh``: this rank's ``distributed.spmd.ShardContext``; ``p`` holds
+    the router whole and this rank's E/tp experts (``experts`` on
+    ``axis``); ``x`` is this rank's (B/dp, S/tp, D) sequence shard
+    (``seq_sharded``, JAX's layout) or all of its tokens (B/dp, S, D),
+    replicated over ``axis`` (decode).  Each expert shard all-gathers the
+    tokens once, runs only its local experts (:func:`_local_expert_pass`
+    at ``e_lo = index * E/tp``), and the fp32 partials are reduce-scattered
+    back onto the sequence shards (all-reduced when replicated); ``aux``
+    is averaged over every axis.  The capacity is a shard's: T is its
+    B/dp * S tokens, as in JAX."""
+    ctx = mesh
+    g = ctx.group(axis)
+    tp = ctx.size(axis)
+    E = cfg.num_experts
+    e_loc = p["w_gate"].shape[0]
+    if e_loc * tp != E:
+        raise ValueError(f"{E} experts do not split into {tp} shards of "
+                         f"{e_loc}")
+    x_full = spmd.gather_dim(x, g, 1) if seq_sharded else spmd.copy_to(x, g)
+    Bl, Sl, D = x_full.shape
+    out, aux = _local_expert_pass(
+        x_full.reshape(Bl * Sl, D), p["router"], p["w_gate"], p["w_up"],
+        p["w_down"], cfg, capacity_factor, ctx.index(axis) * e_loc, e_loc)
+    out = out.reshape(Bl, Sl, D)
+    out = (spmd.scatter_dim(out, g, 1) if seq_sharded
+           else spmd.reduce_from(out, g)).to(x.dtype)
+    aux = spmd.pmean(aux, ctx.world)
+    if cfg.num_shared_experts:
+        shared = dense_mlp(p["shared"], spmd.gather_dim(x, g, 1)
+                           if seq_sharded else spmd.copy_to(x, g))
+        out = out + (spmd.scatter_dim(shared, g, 1) if seq_sharded
+                     else spmd.reduce_from(shared, g))
+    return out, aux
 
 
 def moe_mlp_ref(p, x, cfg: ModelConfig):

@@ -7,6 +7,18 @@ Block: in_proj -> [z | x | B | C | dt]; causal depthwise conv over (x,B,C);
 SSD core y = SSD(a, dt*Bx, C) + D*x; gated RMSNorm(y * silu(z)); out_proj.
 Group count G=1 (B/C shared across heads), as in Mamba-2 defaults.
 
+With ``ctx`` (a ``distributed.spmd.ShardContext``) :func:`ssm_forward`
+and :func:`ssm_decode` run the block as one rank of a mesh, with the
+rules' split over ``model``: ``w_z``, ``gate_norm`` and ``w_out``'s rows
+on ``inner``, the fused x/B/C projection, its depthwise conv and the
+conv cache on ``conv_ch`` (contiguous columns of [x | B | C]), and
+``w_dt``, ``a_log``, ``dt_bias``, ``d_skip`` and the state on
+``ssm_heads``.  The conv runs on the local channels; the activated
+channels are all-gathered, each rank takes its heads' x columns and the
+whole B and C, runs the SSD on its heads, normalises the gated output
+with the mean of squares averaged over ``model``, and ``w_out`` gives a
+partial sum over ``model``.
+
 ``ssd_chunked`` computes in the input's dtype, as JAX does (the log decay
 and its cumsum in x's dtype, the carried state in fp32 and cast back to
 x's dtype for the output term); the kernel and ``ref.ssd_scan_ref``
@@ -20,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import spmd
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ParamSpec, rms_norm, swish
 
@@ -133,14 +146,39 @@ def _dt_a(p, dt_raw, dtype):
     return dt, a_neg
 
 
-def ssm_forward(p, x, positions, cfg: ModelConfig, *, impl="auto"):
+def _split_xbc(xbc, p, cfg: ModelConfig, ctx):
+    """(x of this rank's heads, B, C) from the activated [x | B | C]
+    channels.  Under ``ctx`` the rank holds a contiguous slice of them,
+    all-gathered over ``model`` first (backward: reduce-scatter)."""
+    DI, N = cfg.d_inner, cfg.ssm_state
+    width = p["a_log"].shape[0] * cfg.ssm_head_dim
+    lo = 0
+    if ctx is not None:
+        xbc = spmd.gather_dim(xbc, ctx.group("model"), xbc.dim() - 1)
+        lo = ctx.index("model") * width
+    return (xbc[..., lo: lo + width], xbc[..., DI: DI + N],
+            xbc[..., DI + N:])
+
+
+def _gated_norm(y, z, p, cfg: ModelConfig, ctx):
+    """The gated RMSNorm over the whole inner dim, of which ``y`` and
+    ``z`` hold this rank's columns under ``ctx``."""
+    g = None if ctx is None else ctx.group("model")
+    return rms_norm(y * swish(z), p["gate_norm"], cfg.norm_eps,
+                    mean_of=None if g is None
+                    else (lambda v: spmd.psum_mean(v, g)))
+
+
+def ssm_forward(p, x, positions, cfg: ModelConfig, *, impl="auto", ctx=None):
     """Full-sequence mamba2 block.  Returns (out, cache) with the final
     state cache.  ``impl="kernel"`` (the counterpart of JAX's ``pallas``)
     runs the SSD core through ``ops.ssd_scan``; anything else through
-    :func:`ssd_chunked`."""
+    :func:`ssd_chunked`.  Under ``ctx`` ``x`` is the whole sequence,
+    replicated over ``model``; ``out`` is a partial sum over ``model``
+    and the cache holds this rank's heads and conv channels."""
     B, L, D = x.shape
-    DI, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    W = cfg.ssm_conv_width
+    P, W = cfg.ssm_head_dim, cfg.ssm_conv_width
+    H = p["a_log"].shape[0]  # this rank's heads
 
     z, xbc_raw, dt_raw = _project(p, x)
 
@@ -148,11 +186,8 @@ def ssm_forward(p, x, positions, cfg: ModelConfig, *, impl="auto"):
     pad = F.pad(xbc_raw, (0, 0, W - 1, 0))
     conv = sum(pad[:, i: i + L] * p["conv_w"][i][None, None]
                for i in range(W)) + p["conv_b"][None, None]
-    xbc = swish(conv)
-
-    xs = xbc[..., :DI].reshape(B, L, H, P)
-    b_mat = xbc[..., DI: DI + N]
-    c_mat = xbc[..., DI + N:]
+    xs, b_mat, c_mat = _split_xbc(swish(conv), p, cfg, ctx)
+    xs = xs.reshape(B, L, H, P)
     dt, a_neg = _dt_a(p, dt_raw, x.dtype)
 
     if impl == "kernel":
@@ -161,35 +196,36 @@ def ssm_forward(p, x, positions, cfg: ModelConfig, *, impl="auto"):
     else:
         y, h_fin = ssd_chunked(xs, dt, a_neg, b_mat, c_mat, cfg.ssm_chunk)
     y = y + xs * p["d_skip"][None, None, :, None]
-    y = y.reshape(B, L, DI)
-    y = rms_norm(y * swish(z), p["gate_norm"], cfg.norm_eps)
+    y = _gated_norm(y.reshape(B, L, H * P), z, p, cfg, ctx)
     out = y @ p["w_out"]
     # conv tail: last W-1 *pre-activation* (x,B,C) values, for decode
     cache = {"state": h_fin, "conv": pad[:, L:]}
     return out, cache
 
 
-def ssm_decode(p, x, pos, cache, cfg: ModelConfig):
-    """Single-token mamba2 step. cache: state (B,H,N,P), conv (B,W-1,conv_ch)."""
+def ssm_decode(p, x, pos, cache, cfg: ModelConfig, ctx=None):
+    """Single-token mamba2 step. cache: state (B,H,N,P), conv (B,W-1,conv_ch).
+    Under ``ctx`` ``x`` is replicated over ``model``, the state holds this
+    rank's heads and the conv tail its channels; the output is
+    all-reduced over ``model``."""
     B = x.shape[0]
-    DI, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    P = cfg.ssm_head_dim
+    H = p["a_log"].shape[0]
 
     z, xbc_new, dt_raw = _project(p, x[:, 0])
 
     hist = torch.cat([cache["conv"], xbc_new[:, None]], dim=1)  # (B,W,ch)
     conv = torch.einsum("bwc,wc->bc", hist, p["conv_w"]) + p["conv_b"]
-    xbc = swish(conv)
-
-    x_t = xbc[..., :DI].reshape(B, H, P)
-    b_t = xbc[..., DI: DI + N]
-    c_t = xbc[..., DI + N:]
+    x_t, b_t, c_t = _split_xbc(swish(conv), p, cfg, ctx)
+    x_t = x_t.reshape(B, H, P)
     dt, a_neg = _dt_a(p, dt_raw, x.dtype)
 
     y, h = ssd_step(cache["state"], x_t, dt, a_neg, b_t, c_t)
     y = y + x_t * p["d_skip"][None, :, None]
-    y = y.reshape(B, DI)
-    y = rms_norm(y * swish(z), p["gate_norm"], cfg.norm_eps)
+    y = _gated_norm(y.reshape(B, H * P), z, p, cfg, ctx)
     out = (y @ p["w_out"])[:, None]
+    if ctx is not None:
+        out = spmd.reduce_from(out, ctx.group("model"))
     return out, {"state": h, "conv": hist[:, 1:]}
 
 
@@ -206,3 +242,4 @@ def ssm_cache_specs(cfg: ModelConfig, layers: int, batch: int,
                           ("layers", "batch", None, "conv_ch"),
                           dtype=dtype, init="zeros"),
     }
+

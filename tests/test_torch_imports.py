@@ -54,7 +54,12 @@ def test_scan_sees_every_module():
                 "benchmarks/torch_ilp_planner.py",
                 "tools/torch_bench_trajectory.py",
                 "src/repro_torch/analysis/kernel_contracts.py",
-                "tools/torch_lint.py"):
+                "tools/torch_lint.py",
+                "src/repro_torch/distributed/spmd.py",
+                "src/repro_torch/distributed/layout.py",
+                "src/repro_torch/launch/dryrun.py",
+                "src/repro_torch/analysis/mesh_axes.py",
+                "benchmarks/torch_roofline.py"):
         assert REPO / new in FILES, new
     assert _forbidden("repro.models") and _forbidden("jax.numpy")
     assert _forbidden("ml_dtypes")

@@ -1,7 +1,7 @@
 """torch-lint — the PyTorch/CUDA port's static-analysis gate.
 
-Runs the three ``repro_torch.analysis`` analyzers (Hopper kernel
-contracts, determinism, schema drift) over the port, subtracts the
+Runs the four ``repro_torch.analysis`` analyzers (Hopper kernel
+contracts, determinism, mesh axes, schema drift) over the port, subtracts the
 committed baseline (``tools/torch_lint_baseline.json``: justified
 suppressions keyed by line-stable fingerprints), and exits non-zero on
 any *unbaselined* finding.  ``tools/repro_lint.py``'s flags, output and
@@ -11,6 +11,7 @@ exit codes; it runs on the host, needs no card and starts no process.
     PYTHONPATH=src python tools/torch_lint.py --json \\
         --out results/torch_lint_findings.json             # the artifact
     PYTHONPATH=src python tools/torch_lint.py --analyzer determinism
+    PYTHONPATH=src python tools/torch_lint.py --analyzer mesh
     PYTHONPATH=src python tools/torch_lint.py --write-baseline  # accept all
 
 Baseline workflow: fix findings where possible; for a justified
@@ -31,6 +32,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 DEFAULT_BASELINE = REPO / "tools" / "torch_lint_baseline.json"
+# each analyzer's finding-code prefix
+CODES = {"kernel": "KC", "determinism": "DT", "mesh": "MX", "schema": "SD"}
 
 
 def main(argv=None) -> int:
@@ -42,7 +45,7 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", default=str(DEFAULT_BASELINE),
                     help="suppression file (the baseline schema)")
     ap.add_argument("--analyzer", action="append", default=None,
-                    choices=["kernel", "determinism", "schema"],
+                    choices=["kernel", "determinism", "mesh", "schema"],
                     help="run only these analyzers (repeatable)")
     ap.add_argument("--root", default=str(REPO),
                     help="tree to analyze (default: this repo; the kernel "
@@ -71,6 +74,10 @@ def main(argv=None) -> int:
         return 0
 
     suppressions = load_baseline(Path(args.baseline))
+    if args.analyzer:  # a suppression of an analyzer not run is not stale
+        codes = tuple(CODES[a] for a in args.analyzer)
+        suppressions = {fp: r for fp, r in suppressions.items()
+                        if fp.startswith(codes)}
     unbaselined, suppressed, stale = apply_baseline(findings, suppressions)
     payload = make_findings_payload(unbaselined, suppressed, stale,
                                     monotonic() - t0)
