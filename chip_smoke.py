@@ -331,7 +331,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
    family on the single-pod mesh (granite train_4k, deepseek-v2
    decode_32k, musicgen prefill_32k, jamba train_4k), each ok, with its
    per-chip GiB, FLOPs, wire GiB and trace time (records written under
-   build/chip_smoke and deleted).
+   build/chip_smoke and deleted); (4) on (2)'s batch and weights, the
+   (1, 1) step with microbatch 1 (4 passes of one row) and the sequence
+   replicated, against the unsharded step with the same microbatch
+   (C5's bounds), its own peak printed beside (2)'s, and the gradients
+   alone (build_grad_fn) with and without the microbatches.
+
+21. examples — examples/torch_quickstart.py's main() on the card from
+   a temporary directory under build/ (deleted): the reduced granite
+   trains 60 steps and serves 2 requests; both Reports pass
+   validate_report and are saved, the losses finite.
 
 Then it prints the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line, and, last, the
@@ -949,19 +958,19 @@ def trees_equal(torch, tree_items, a, b) -> bool:
 
 
 def adam_close(tree_items, got, want, grads, *, scale, lr,
-               tol=FP32_TOL):
+               tol=FP32_TOL, device="cpu"):
     """Updated params after one AdamW step against a reference: within
     tol + tol * max |want| per leaf, except where the reference's clipped
     gradient is below 100 * eps (AdamW's first step moves an element by
     lr * g / (|g| + eps), which there turns on rounding of ~1e-8): there
     within 2 * lr, the most that step can move it, plus tol for the
-    rounding of the update itself.  Returns (ok, max diff elsewhere, count
-    of those elements, max diff on them)."""
+    rounding of the update itself, compared on ``device``.  Returns (ok,
+    max diff elsewhere, count of those elements, max diff on them)."""
     ok, worst, n_eps, worst_eps = True, 0.0, 0, 0.0
     for (_, g), (_, w), (_, gr) in zip(tree_items(got), tree_items(want),
                                        tree_items(grads)):
-        d = (g.float().cpu() - w.float().cpu()).abs()
-        tiny = (gr.float().cpu() * scale).abs() < 100 * 1e-8
+        d = (g.float().to(device) - w.float().to(device)).abs()
+        tiny = (gr.float().to(device) * scale).abs() < 100 * 1e-8
         lim = tol + tol * w.float().abs().max().item()
         rest = d[~tiny].max().item() if bool((~tiny).any()) else 0.0
         eps = d[tiny].max().item() if bool(tiny.any()) else 0.0
@@ -2001,6 +2010,67 @@ def sharded_phase(torch, wrappers) -> None:
     del params, state, step, real, ctx, store
     torch.cuda.empty_cache()
 
+    # 20.4: microbatch accumulation with the sequence replicated, (1, 1)
+    peak_whole, t4 = peak - base, time.perf_counter()
+    run4 = RunConfig(attn_impl="auto", remat="block", microbatch=1)
+    ref = smooth_attention(materialize(M.model_specs(cfg), 0, "cuda"), cfg)
+    loss_ref, _, grads = build_grad_fn(cfg, run4)(ref, batch)
+    ref, moments, gnorm = apply_updates(opt, ref, grads, init_state(opt, ref))
+    loss_ref, scale = loss_ref.item(), min(1.0, opt.grad_clip / gnorm.item())
+    del moments  # the reference and its gradients stay on the card
+    torch.cuda.empty_cache()
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True)
+    ctx = mesh_lib.make_context(mesh, 0, mesh_lib.groups(
+        mesh, 0, store=store, device="cuda"), cfg, seq_parallel=False)
+    params = smooth_attention(materialize(M.model_specs(cfg), 0, "cuda"),
+                              cfg)
+    state = S.zero_state(cfg, mesh, ctx.rules, opt, "cuda")
+    step = S.build_train_step(cfg, RunConfig(
+        attn_impl="auto", remat="block", microbatch=1, shard=ctx), opt)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss = float(step(params, state, batch)[2]["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    ok_p, worst_p, n_eps, worst_eps = adam_close(
+        tree_items, params, ref, grads, scale=scale, lr=opt.lr,
+        device="cuda")
+    del ref, grads
+    torch.cuda.empty_cache()
+    grad_peak = {}  # the gradients alone, with and without microbatches
+    for mb in (1, 0):
+        fn = S.build_grad_fn(cfg, RunConfig(
+            attn_impl="auto", remat="block", microbatch=mb, shard=ctx))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        b0 = torch.cuda.memory_allocated()
+        out = fn(params, batch)
+        torch.cuda.synchronize()
+        grad_peak[mb] = torch.cuda.max_memory_allocated() - b0
+        del out, fn
+        torch.cuda.empty_cache()
+    print(f"[sharded] 20.4 granite-3-2b full width fp32, the same batch "
+          f"(4 x 512) and weights, microbatch 1 (4 passes of one row), "
+          f"sequence replicated, mesh (1, 1): loss {loss:.6f} vs the "
+          f"unsharded microbatched step's {loss_ref:.6f}; updated params "
+          f"max |diff| {worst_p:.3e} (limit 2e-4 + 2e-4 * max |want| per "
+          f"leaf), {worst_eps:.3e} on the {n_eps} elements whose clipped "
+          f"gradient is below 100 * eps (limit 2 * lr + 2e-4); the step's "
+          f"own peak {(peak - base) / 1e9:.3f} GB against 20.2's "
+          f"{peak_whole / 1e9:.3f} GB unmicrobatched; the gradients alone "
+          f"(build_grad_fn, the same context) {grad_peak[1] / 1e9:.3f} GB "
+          f"microbatched against {grad_peak[0] / 1e9:.3f} GB not; 20.4's "
+          f"wall {time.perf_counter() - t4:.1f} s ({card})", flush=True)
+    if abs(loss - loss_ref) > FP32_TOL + FP32_TOL * abs(loss_ref) or \
+            not ok_p:
+        fail(f"the microbatched sharded step at (1, 1) and the unsharded "
+             f"microbatched step disagree: loss {loss} vs {loss_ref}, "
+             f"params {worst_p} ({worst_eps} where the gradient is below "
+             f"100 * eps)")
+    del params, state, step, ctx, store
+    torch.cuda.empty_cache()
+
     # 20.3: one dry-run record per slot family on the single-pod mesh
     out = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
         f"dryrun_{os.getpid()}"
@@ -2030,6 +2100,53 @@ def sharded_phase(torch, wrappers) -> None:
         fail(f"phase 20 launched kernels: {moved}")
     print(f"[sharded] no kernel launched; phase wall "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# phase 21: the examples' twins
+def examples_phase(torch, wrappers) -> None:
+    """Phase 21 (see the module docstring)."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from repro_torch.api import validate_report
+
+    zero_counts(torch, wrappers)
+    t_phase = time.perf_counter()
+    here = Path(__file__).resolve().parent
+    path = here / "examples" / "torch_quickstart.py"
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    (here / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=here / "build"))
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        rep, srep = mod.main([])
+        for r in (rep, srep):
+            validate_report(r.to_dict())
+        saved = sorted(p.name for p in (work / "results").glob("*.json"))
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    losses = rep.measured["losses"]
+    if len(losses) != 60 or not all(math.isfinite(x) for x in losses):
+        fail(f"torch_quickstart's losses: {losses}")
+    if saved != ["torch_quickstart_serve_report.json",
+                 "torch_quickstart_train_report.json"]:
+        fail(f"torch_quickstart saved {saved}")
+    if any(r.meta["device"]["type"] != "cuda" for r in (rep, srep)):
+        fail(f"torch_quickstart ran on {rep.meta['device']}")
+    moved = {n: c for n, c in read_counts(torch, wrappers).items() if c}
+    print(f"[examples] torch_quickstart.main() on the card: reduced "
+          f"granite-3-2b, 60 steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, {rep.measured['tokens_per_s']:.1f} tok/s; "
+          f"serve {srep.measured['n_tokens']} tokens at "
+          f"{srep.measured['tokens_per_s']:.1f} tok/s; both Reports valid "
+          f"(validate_report) and saved; launches {moved}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s ({card_label()})",
+          flush=True)
 
 
 def card_label() -> str:
@@ -3766,6 +3883,9 @@ def main() -> None:
 
     # 20. the sharded step and its dry run ----------------------------------------
     sharded_phase(torch, wrappers)
+
+    # 21. the examples' twins -------------------------------------------------------
+    examples_phase(torch, wrappers)
 
     leaked = sorted(n for n in sys.modules
                     if n.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",

@@ -87,6 +87,17 @@ class Group:
         self._record("all-gather", shard, out)
         return out
 
+    def all_to_all(self, flat: torch.Tensor, send: Sequence[int],
+                   recv: Sequence[int]) -> torch.Tensor:
+        """``flat``'s consecutive pieces of ``send[j]`` elements to rank
+        j; returns the pieces of ``recv[j]`` elements from rank j,
+        concatenated in rank order."""
+        out = flat.new_empty(sum(recv))
+        self.pg.alltoall_base(out, flat, list(recv), list(send),
+                              dist.AllToAllOptions()).wait()
+        self._record("all-to-all", flat, out)
+        return out
+
 
 class RecordingGroup(Group):
     """A :class:`Group` that moves no byte: on ``meta`` tensors each call
@@ -120,6 +131,13 @@ class RecordingGroup(Group):
         self._check(shard)
         out = shard.new_empty(shard.numel() * self.size)
         self._record("all-gather", shard, out)
+        return out
+
+    def all_to_all(self, flat: torch.Tensor, send: Sequence[int],
+                   recv: Sequence[int]) -> torch.Tensor:
+        self._check(flat)
+        out = flat.new_empty(sum(recv))
+        self._record("all-to-all", flat, out)
         return out
 
 

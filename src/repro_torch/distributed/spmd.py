@@ -18,7 +18,10 @@ FSDP and ZeRO-1 on the data axes):
 - the residual stream is (B/dp, S/tp, D) under sequence parallelism: a
   sequence all-gather over ``model`` before each mixer and MLP
   (:func:`enter`), a reduce-scatter of the head- or ff-sharded partial
-  sums after (:func:`leave`), each the other's backward;
+  sums after (:func:`leave`), each the other's backward; with the
+  sequence replicated (``seq_parallel=False``, Megatron's plain tensor
+  parallelism) a copy in (identity forward, all-reduce backward) and an
+  all-reduce out, and a replicated mixer between neither;
 - decode has no sequence to split: a copy in (identity forward,
   all-reduce backward) and an all-reduce out;
 - the embedding and the LM head are vocab-parallel
@@ -29,14 +32,23 @@ FSDP and ZeRO-1 on the data axes):
   (:func:`fsdp_gather`);
 - the gradients land on the ZeRO-1 layout (``embed`` on the data axes):
   :func:`land_grads` (a reduce-scatter, or JAX's baseline all-reduce),
-  the norm of the sharded gradient in :func:`global_norm`.
+  the norm of the sharded gradient in :func:`global_norm`;
+- a batch smaller than the data axes (the ``batch`` rule empty) is
+  whole on every rank: each data rank's gradient is then the whole
+  batch's, and nothing is summed over the data axes (FSDP's gather and
+  the ZeRO-1 landing take this rank's slice);
+- microbatch accumulation spreads each microbatch's rows over the batch
+  ranks (:func:`microbatches`, one all-to-all of the inputs).
 
-A leaf that the rules do not shard on ``model`` gets a partial gradient
-on each model rank under sequence parallelism (its tokens, or its local
-heads' share), so its gradient is summed over ``model``; a leaf sharded
-on ``model`` has its whole gradient locally.  With one-rank groups every
-collective is the identity (none is issued, as XLA drops them), and the
-program is the unsharded one.
+Which leaves' gradients are summed over ``model`` depends on where the
+leaf is read (:func:`_model_partial`): a leaf sharded on ``model`` has
+its whole gradient locally; under sequence parallelism every other leaf
+sees only its tokens' share; with the sequence replicated, a leaf read
+inside a head- or ff-split region (``wk``/``wv`` beside split q heads,
+MLA's down-projections, the MoE router) sees only its heads' or experts'
+share, while the norms and a replicated mixer's leaves see the whole.
+With one-rank groups every collective is the identity (none is issued,
+as XLA drops them), and the program is the unsharded one.
 """
 from __future__ import annotations
 
@@ -92,16 +104,19 @@ def _summed(g: Group, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
 
 
 class _Gather(torch.autograd.Function):
-    """All-gather along ``dim``; backward: reduce-scatter."""
+    """All-gather along ``dim``; backward: reduce-scatter, or this rank's
+    slice where every rank's gradient is already the whole (``whole``)."""
 
     @staticmethod
-    def forward(ctx, x, g, dim):
-        ctx.g, ctx.dim = g, dim
+    def forward(ctx, x, g, dim, whole):
+        ctx.g, ctx.dim, ctx.whole = g, dim, whole
         return all_gather_dim(g, x, dim)
 
     @staticmethod
     def backward(ctx, dy):
-        return reduce_scatter_dim(ctx.g, dy, ctx.dim), None, None
+        if ctx.whole:
+            return local_chunk(dy, ctx.g, ctx.dim), None, None, None
+        return reduce_scatter_dim(ctx.g, dy, ctx.dim), None, None, None
 
 
 class _Scatter(torch.autograd.Function):
@@ -157,8 +172,8 @@ class _Reduce(torch.autograd.Function):
         return dy, None
 
 
-def gather_dim(x, g: Optional[Group], dim: int):
-    return _Gather.apply(x, g, dim) if _live(g) else x
+def gather_dim(x, g: Optional[Group], dim: int, whole: bool = False):
+    return _Gather.apply(x, g, dim, whole) if _live(g) else x
 
 
 def scatter_dim(x, g: Optional[Group], dim: int):
@@ -264,14 +279,18 @@ class ShardContext:
 # ---------------------------------------------------------------------------
 
 
-def enter(x, ctx: Optional[ShardContext], seq: bool):
+def enter(x, ctx: Optional[ShardContext], seq: bool, partial: bool = True):
     """Residual (seq-sharded when ``seq``) -> the whole sequence,
     replicated over ``model``: what a head- or ff-sharded layer reads.
-    Without a context (one device), ``x``."""
+    ``partial`` as :func:`leave`'s: a replicated layer on a replicated
+    residual reads ``x`` itself, since its input gradient is already
+    whole on every rank.  Without a context (one device), ``x``."""
     if ctx is None:
         return x
     g = ctx.group("model")
-    return gather_dim(x, g, 1) if seq else copy_to(x, g)
+    if seq:
+        return gather_dim(x, g, 1)
+    return copy_to(x, g) if partial else x
 
 
 def leave(y, ctx: Optional[ShardContext], seq: bool, partial: bool = True):
@@ -360,14 +379,57 @@ def fsdp_gather(tree, specs, ctx: ShardContext, offset: int = 0):
     g = ctx.group(ctx.rules["embed"])
     if not _live(g):
         return tree
+    whole = not ctx.rule("batch")
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
             out[k] = fsdp_gather(v, specs[k], ctx, offset)
             continue
         d = _embed_dim(specs[k])
-        out[k] = v if d is None else gather_dim(v, g, d - offset)
+        out[k] = v if d is None else gather_dim(v, g, d - offset, whole)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Microbatches
+# ---------------------------------------------------------------------------
+
+
+def microbatches(batch, n: int, ctx: ShardContext):
+    """This rank's rows of each of the ``n`` microbatches of the global
+    batch, in pass order (a list of ``n`` batches).  Microbatch i is the
+    global rows ``[i m, (i + 1) m)`` (m = B/n, JAX's reshape), spread over
+    the k ranks of the ``batch`` rule, m/k rows a rank, so that each pass
+    holds JAX's sharded ``X_mini``.  Every input moves by one all-to-all
+    over those ranks (nothing moves where k is 1): this rank's B/k rows
+    are n blocks of m/k rows, global blocks ``s n .. s n + n - 1`` for
+    its index s, and global block j is pass j // k on rank j mod k, so
+    each rank receives its blocks in pass order.  ``ValueError`` where
+    the batch or a microbatch does not split."""
+    axes = ctx.rules["batch"]
+    k, s, g = ctx.size(axes), ctx.index(axes), ctx.group(axes)
+    b = batch["tokens"].shape[0]
+    if b % n:  # B % n, or a microbatch's B/n rows over the k ranks
+        raise ValueError(
+            f"global batch {b * k} ({b} rows on each of {k} ranks of the "
+            f"batch axes {ctx.axes(axes)}) does not split into {n} "
+            f"microbatches whose rows split over those {k} ranks")
+    q = b // n  # rows a rank a pass: m/k
+    dest = [(s * n + j) % k for j in range(n)]
+    order = sorted(range(n), key=lambda j: (dest[j], j))
+    sent = [dest.count(r) for r in range(k)]
+    got = [sum((r * n + j) % k == s for j in range(n)) for r in range(k)]
+    out = {}
+    for key, t in batch.items():
+        blocks = t.reshape((n, q) + t.shape[1:])
+        if _live(g) and n > 1:  # one microbatch: every row stays put
+            row = q * t[0].numel()
+            moved = g.all_to_all(
+                torch.cat([blocks[j] for j in order]).reshape(-1),
+                [c * row for c in sent], [c * row for c in got])
+            blocks = moved.reshape(blocks.shape)
+        out[key] = blocks
+    return [{key: v[i] for key, v in out.items()} for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -381,9 +443,30 @@ def _spec_at(specs, path):
     return specs
 
 
-def _on_model(axes_tuple) -> bool:
-    return any(a == "model" or (isinstance(a, tuple) and "model" in a)
-               for a in axes_tuple)
+def _split_on_model(ctx: ShardContext, spec) -> bool:
+    """Whether the rules shard a dim of ``spec`` over ``model``."""
+    return any("model" in ctx.axes(ctx.rules.get(a) if a is not None
+                                   else None) for a in spec.axes)
+
+
+def _model_partial(ctx: ShardContext, path) -> bool:
+    """Whether the leaf at ``path`` has a part of its gradient on each
+    model rank (so it is summed over ``model``): never where it is split
+    on ``model``; always under sequence parallelism (its tokens' share);
+    with the sequence replicated, where it is read inside a split region,
+    a mixer or MLP that has a leaf split on ``model`` (its heads',
+    channels' or experts' share).  The top leaves, the norms and a
+    replicated mixer read the replicated residual with its whole
+    gradient."""
+    if _split_on_model(ctx, _spec_at(ctx.specs, path)):
+        return False
+    if ctx.seq_parallel:
+        return True
+    for i, k in enumerate(path):
+        if k in ("mixer", "mlp"):
+            return any(_split_on_model(ctx, sp) for _, sp in
+                       tree_items(_spec_at(ctx.specs, path[:i + 1])))
+    return False
 
 
 def _zero_dim(ctx: ShardContext, spec) -> Optional[int]:
@@ -396,28 +479,31 @@ def _zero_dim(ctx: ShardContext, spec) -> Optional[int]:
 
 
 def land_grads(grads, ctx: ShardContext):
-    """This rank's gradients -> the sum over every rank, in the ZeRO-1
-    layout: over the data axes a reduce-scatter on ``embed`` (or an
-    all-reduce and this rank's slice; FSDP's gather already
-    reduce-scattered its leaves), an all-reduce for a leaf with no
-    ``embed`` dim; then an all-reduce over ``model`` for each leaf not
-    sharded there (its gradient is partial on each model rank)."""
+    """This rank's gradients -> the whole batch's, in the ZeRO-1 layout:
+    over the data axes a reduce-scatter on ``embed`` (or an all-reduce
+    and this rank's slice; FSDP's gather already reduce-scattered its
+    leaves), an all-reduce for a leaf with no ``embed`` dim, or, where
+    the batch is whole on every rank, this rank's slice alone; then an
+    all-reduce over ``model`` for each leaf whose gradient is partial on
+    each model rank (:func:`_model_partial`)."""
     dp = ctx.group(ctx.dp_axes)
     g_model = ctx.group("model")
+    split_batch = bool(ctx.rule("batch"))
     out = []
     for path, g in tree_items(grads):
         spec = _spec_at(ctx.specs, path)
         d = _zero_dim(ctx, spec)
         if _embed_dim(spec) is None:
-            g = reduce_from(g, dp)
+            if split_batch:
+                g = reduce_from(g, dp)
         elif d is not None:
-            if ctx.grad_reduce_scatter:
+            if not split_batch:
+                g = local_chunk(g, dp, d)
+            elif ctx.grad_reduce_scatter:
                 g = scatter_dim(g, dp, d)
             else:
                 g = local_chunk(reduce_from(g, dp), dp, d)
-        axes = tuple(ctx.rules.get(a) if a is not None else None
-                     for a in spec.axes)
-        if not _on_model(axes):
+        if _model_partial(ctx, path):
             g = reduce_from(g, g_model)
         out.append((path, g))
     return tree_unflatten(out)

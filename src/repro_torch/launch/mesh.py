@@ -15,7 +15,6 @@ from __future__ import annotations
 from datetime import timedelta
 from typing import Dict, Optional, Tuple
 
-import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.collectives import Group, RecordingGroup
@@ -24,6 +23,7 @@ from repro_torch.distributed.layout import (  # noqa: F401
 )
 from repro_torch.distributed.spmd import ShardContext
 from repro_torch.models import model as M
+from repro_torch.models.common import resolve_device
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -52,7 +52,7 @@ def group_keys(mesh) -> Tuple[Tuple[str, ...], ...]:
     return tuple(keys)
 
 
-def groups(mesh, rank: int, *, store=None, device="cpu",
+def groups(mesh, rank: int, *, store=None, device="cuda",
            timeout: timedelta = timedelta(seconds=300),
            log: Optional[list] = None) -> Dict[Tuple[str, ...], Group]:
     """One :class:`Group` per key of :func:`group_keys` for ``rank``.
@@ -63,9 +63,11 @@ def groups(mesh, rank: int, *, store=None, device="cpu",
     (gloo on the CPU, NCCL on a card), by the group's members only.
     Without one, under ``torchrun`` (``init_process_group`` done), every
     group of the mesh is made with ``dist.new_group`` in one fixed order,
-    as every rank must.  ``log``: a list every group appends its
-    collectives' records to (``Group.log``)."""
-    dev = torch.device(device)
+    as every rank must.  ``device``: the card (NCCL) unless the caller
+    asks for the CPU (gloo); ``cuda`` without a card raises.  ``log``: a
+    list every group appends its collectives' records to
+    (``Group.log``)."""
+    dev = resolve_device(device)
     out: Dict[Tuple[str, ...], Group] = {}
     for key in group_keys(mesh):
         members = mesh.group_ranks(key, rank)

@@ -154,32 +154,47 @@ def _build_sharded_grad_fn(cfg: ModelConfig, run: RunConfig):
     ``run.shard``: the gradients of the rank's objective
     (``models.model._loss_sharded``), landed on the ZeRO-1 layout
     (``spmd.land_grads``): summed over every rank, they are the whole
-    batch's.  ``loss`` and ``metrics`` are the whole batch's."""
+    batch's.  ``loss`` and ``metrics`` are the whole batch's.
+
+    With ``run.microbatch`` the unsharded path's semantics on the global
+    batch: n = max(B // microbatch, 1) passes, pass i over microbatch i's
+    rows spread over the batch ranks (``spmd.microbatches``), its CE
+    normalised by microbatch i's global token count (the n counts
+    all-reduced once, up front); the local gradients are summed in fp32,
+    divided by n and landed once.  ``loss`` is then the mean of the
+    passes' losses and ``metrics`` empty, as the unsharded path returns."""
     ctx = run.shard
-    if run.microbatch:
-        raise NotImplementedError(
-            "microbatch accumulation in the sharded step (ROADMAP Next 20)")
-    if not ctx.seq_parallel:
-        raise NotImplementedError(
-            "the sharded train step runs sequence-parallel, as JAX's dry "
-            "run (act_sharding(seq_parallel=True)); without it (ROADMAP "
-            "Next 20)")
-    if not ctx.rule("batch"):
-        raise ValueError("the sharded train step needs the batch split "
-                         "over the data axes (global batch >= dp)")
 
     def grads_of(params, batch):
         src = M.cast_params(params, cfg) if run.bf16_grads else params
         items = [(path, p.detach().requires_grad_())
                  for path, p in tree_items(src)]
-        objective, metrics = M.loss_fn(tree_unflatten(items), batch, cfg,
-                                       run)
-        grads = torch_grad(objective, [p for _, p in items])
+        tree, leaves = tree_unflatten(items), [p for _, p in items]
+        if run.microbatch:
+            B = batch["tokens"].shape[0] * ctx.size(ctx.rules["batch"])
+            n = max(B // run.microbatch, 1)
+            passes = spmd.microbatches(batch, n, ctx)
+            counts = spmd.reduce_from(
+                torch.stack([torch.sum(mb["labels"] >= 0) for mb in passes])
+                .float(), ctx.group(ctx.rules["batch"]))
+            grads, loss, metrics = None, 0.0, {}
+            for i, mb in enumerate(passes):
+                objective, m = M.loss_fn(tree, mb, cfg, run, count=counts[i])
+                g = torch_grad(objective, leaves)
+                grads = ([x.float() for x in g] if grads is None
+                         else [a.add_(x) for a, x in zip(grads, g)])
+                del g  # one pass's gradient alive at a time
+                loss = loss + m["loss"].detach()
+            grads, loss = [a.div_(n) for a in grads], loss / n
+        else:
+            objective, metrics = M.loss_fn(tree, batch, cfg, run)
+            grads = torch_grad(objective, leaves)
+            metrics = _detached(metrics)
+            loss = metrics.pop("loss")
         grads = spmd.land_grads(
             tree_unflatten((path, g) for (path, _), g in zip(items, grads)),
             ctx)
-        metrics = _detached(metrics)
-        return metrics.pop("loss"), metrics, grads
+        return loss, metrics, grads
 
     return grads_of
 

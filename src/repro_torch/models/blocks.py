@@ -190,16 +190,18 @@ def _mlp_residual(p, h, cfg: ModelConfig, slot: SlotSpec, run: RunConfig,
 def slot_forward(p, h, positions, cfg: ModelConfig, slot: SlotSpec,
                  run: RunConfig):
     """Returns (h, cache, aux_loss).  Under ``run.shard`` ``h`` is this
-    rank's (B/dp, S/tp, D) residual shard under sequence parallelism,
+    rank's (B/dp, S/tp, D) residual shard under sequence parallelism (its
+    (B/dp, S, D) rows, replicated over ``model``, without it),
     ``positions`` the whole sequence's, and an attention slot's caches
     come out as this rank's ``kv_seq`` slice."""
     check_slot(slot)
     ctx = run.shard
     seq = ctx is not None and ctx.seq_parallel
+    partial = _mixer_partial(p["mixer"], cfg, slot)
     u = rms_norm(h, p["mixer_norm"], cfg.norm_eps)
-    u, cache = _mixer_forward(p["mixer"], spmd.enter(u, ctx, seq), positions,
-                              cfg, slot, run)
-    u = spmd.leave(u, ctx, seq, partial=_mixer_partial(p["mixer"], cfg, slot))
+    u, cache = _mixer_forward(p["mixer"], spmd.enter(u, ctx, seq, partial),
+                              positions, cfg, slot, run)
+    u = spmd.leave(u, ctx, seq, partial=partial)
     if ctx is not None and slot.mixer != "mamba":
         cache = {k: spmd.local_seq(v, ctx) for k, v in cache.items()}
     if cfg.use_post_norm:

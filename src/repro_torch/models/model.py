@@ -336,10 +336,12 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def loss_fn(params, batch, cfg: ModelConfig, run: RunConfig,
-            aux_weight: float = AUX_WEIGHT):
+            aux_weight: float = AUX_WEIGHT, count=None):
     """Masked next-token CE. ``labels`` < 0 are ignored. For image-prefix
     inputs the prefix positions carry no labels (the labels are padded
-    with -1 in front).  Returns (loss, {"ce", "aux"})."""
+    with -1 in front).  Returns (loss, {"ce", "aux"}).  ``count`` (under
+    ``run.shard`` only): the global token count the CE is normalised by,
+    where the caller counted it (a microbatch's); None: this batch's."""
     logits, _, aux = forward(params, batch, cfg, run)
     labels = batch["labels"]
     if "image_embeds" in batch:
@@ -348,7 +350,8 @@ def loss_fn(params, batch, cfg: ModelConfig, run: RunConfig,
                               -1)
         labels = torch.cat([pad, labels], dim=1)
     if run.shard is not None:
-        return _loss_sharded(logits, labels, aux, aux_weight, cfg, run.shard)
+        return _loss_sharded(logits, labels, aux, aux_weight, cfg, run.shard,
+                             count)
     loss, ce = masked_loss(logits, labels, aux, aux_weight)
     return loss, {"ce": ce, "aux": aux}
 
@@ -396,18 +399,20 @@ def _logits_sharded(top, h, cfg: ModelConfig, ctx):
 
 
 def _loss_sharded(logits, labels, aux, aux_weight: float, cfg: ModelConfig,
-                  ctx):
+                  ctx, count=None):
     """One rank's share of the loss.  Returns (objective, metrics): the
-    objective is this rank's CE sum over the global token count (its
-    vocab columns differentiated, Megatron's form) plus the weighted aux,
-    whose gradients summed over the ranks are the whole batch's; the
-    metrics hold the whole batch's ``loss``, ``ce`` and ``aux``."""
+    objective is this rank's CE sum over the global token count
+    (``count``, else counted over the batch's ranks here; its vocab
+    columns differentiated, Megatron's form) plus the weighted aux, whose
+    gradients summed over the ranks are the whole batch's; the metrics
+    hold the whole batch's ``loss``, ``ce`` and ``aux``."""
     v_lo = spmd.vocab_lo(ctx, logits.shape[-1])
     nll = spmd.vocab_parallel_nll(logits.float(), torch.clamp(labels, min=0),
                                   v_lo, ctx)
     mask = (labels >= 0).float()
     g_batch = ctx.group(ctx.rules["batch"])
-    count = spmd.reduce_from(torch.sum(mask), g_batch)
+    if count is None:
+        count = spmd.reduce_from(torch.sum(mask), g_batch)
     ce = torch.sum(nll * mask) / torch.clamp(count, min=1.0)
     ce_all = spmd.reduce_from(ce.detach(), g_batch)
     aux_all = aux.detach() if torch.is_tensor(aux) else aux

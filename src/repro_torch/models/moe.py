@@ -182,8 +182,9 @@ def moe_mlp_sharded(p, x, cfg: ModelConfig, *, mesh, axis: str = "model",
     tokens once, runs only its local experts (:func:`_local_expert_pass`
     at ``e_lo = index * E/tp``), and the fp32 partials are reduce-scattered
     back onto the sequence shards (all-reduced when replicated); ``aux``
-    is averaged over every axis.  The capacity is a shard's: T is its
-    B/dp * S tokens, as in JAX."""
+    is averaged over the batch's axes and ``axis`` (every axis, unless a
+    batch smaller than the data axes is whole on every rank).  The
+    capacity is a shard's: T is its B/dp * S tokens, as in JAX."""
     ctx = mesh
     g = ctx.group(axis)
     tp = ctx.size(axis)
@@ -200,7 +201,7 @@ def moe_mlp_sharded(p, x, cfg: ModelConfig, *, mesh, axis: str = "model",
     out = out.reshape(Bl, Sl, D)
     out = (spmd.scatter_dim(out, g, 1) if seq_sharded
            else spmd.reduce_from(out, g)).to(x.dtype)
-    aux = spmd.pmean(aux, ctx.world)
+    aux = spmd.pmean(aux, ctx.group(ctx.rule("batch") + (axis,)))
     if cfg.num_shared_experts:
         shared = dense_mlp(p["shared"], spmd.gather_dim(x, g, 1)
                            if seq_sharded else spmd.copy_to(x, g))

@@ -1,19 +1,23 @@
 """Import guard: the port (``src/repro_torch``), its benchmarks
-(``benchmarks/torch_*.py``), its tools (``tools/torch_*.py``) and
-``chip_smoke.py`` import neither JAX (nor
-``ml_dtypes``, which the card's machine lacks) nor anything of the JAX
-package ``repro``; they keep their own copies of what they need.  A
-static AST scan, so it also covers imports inside functions."""
+(``benchmarks/torch_*.py``), its tools (``tools/torch_*.py``), its
+examples (``examples/torch_*.py``) and ``chip_smoke.py`` import neither
+JAX (nor ``ml_dtypes``, which the card's machine lacks) nor anything of
+the JAX package ``repro``; they keep their own copies of what they need.
+A static AST scan, so it also covers imports inside functions.  Each
+example, its ``--device`` left at the default, raises without a card."""
 import ast
+import importlib.util
 from pathlib import Path
 
 import pytest
+import torch
 
 REPO = Path(__file__).resolve().parent.parent
 BENCHMARKS = sorted((REPO / "benchmarks").glob("torch_*.py"))
 TOOLS = sorted((REPO / "tools").glob("torch_*.py"))
+EXAMPLES = sorted((REPO / "examples").glob("torch_*.py"))
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + BENCHMARKS + \
-    TOOLS + [REPO / "chip_smoke.py"]
+    TOOLS + EXAMPLES + [REPO / "chip_smoke.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -46,6 +50,9 @@ def test_scan_sees_every_module():
     assert len(FILES) > 20 and (REPO / "chip_smoke.py").exists()
     assert len(BENCHMARKS) >= 10 and all(p in FILES for p in BENCHMARKS)
     assert TOOLS and all(p in FILES for p in TOOLS)
+    assert [p.name for p in EXAMPLES] == [
+        f"torch_{n}.py" for n in ("autotune_quickstart", "planner_demo",
+                                  "quickstart", "serve_batch", "train_100m")]
     for new in ("src/repro_torch/distributed/pipeline.py",
                 "src/repro_torch/core/pipeline.py",
                 "benchmarks/torch_pipeline.py",
@@ -64,3 +71,17 @@ def test_scan_sees_every_module():
     assert _forbidden("repro.models") and _forbidden("jax.numpy")
     assert _forbidden("ml_dtypes")
     assert not _forbidden("repro_torch.models")
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+def test_examples_raise_without_a_card(path, monkeypatch, tmp_path):
+    """``--device`` defaults to the card: with none visible, ``main()``
+    raises before any work, never falling back to the CPU."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        mod.main([])
+    assert not (tmp_path / "results").exists()

@@ -270,7 +270,7 @@ def test_groups_under_an_initialised_world():
                             world_size=1)
     try:
         mesh = tmesh.Mesh((1, 1), ("data", "model"))
-        gr = tmesh.groups(mesh, 0)
+        gr = tmesh.groups(mesh, 0, device="cpu")
         assert set(gr) == set(tmesh.group_keys(mesh))
         assert all(g.size == 1 and g.rank == 0 for g in gr.values())
     finally:

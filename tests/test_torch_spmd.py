@@ -132,7 +132,8 @@ def test_moe_mlp_sharded_matches_jax_moe_mlp(moe_case):
     xt = torch.from_numpy(np.array(x))
 
     def rank(r, store):
-        gr = mesh_lib.groups(mesh, r, store=store, timeout=TIMEOUT)
+        gr = mesh_lib.groups(mesh, r, store=store, device="cpu",
+                             timeout=TIMEOUT)
         ctx = mesh_lib.make_context(mesh, r, gr, tcfg)
         di, mi = mesh.axis_index("data", r), mesh.axis_index("model", r)
         pl = {k: v if k == "router" else v[2 * mi: 2 * mi + 2]
@@ -253,7 +254,8 @@ def stepped(request):
 
     def rank(r, store):
         log = []
-        gr = mesh_lib.groups(mesh, r, store=store, log=log, timeout=TIMEOUT)
+        gr = mesh_lib.groups(mesh, r, store=store, device="cpu", log=log,
+                             timeout=TIMEOUT)
         ctx = mesh_lib.make_context(mesh, r, gr, cfg, **opts)
         run = _run(shard=ctx)
         pl = spmd.shard_tree(params, ctx.specs, ctx.rules, mesh, r)
@@ -400,7 +402,8 @@ def test_decode_with_the_sequence_over_data_and_model():
                                                tree_map(torch.clone, placed))
 
     def rank(r, store):
-        gr = mesh_lib.groups(mesh, r, store=store, timeout=TIMEOUT)
+        gr = mesh_lib.groups(mesh, r, store=store, device="cpu",
+                             timeout=TIMEOUT)
         ctx = mesh_lib.make_context(mesh, r, gr, cfg, shape)
         assert ctx.rules["kv_seq"] == ("data", "model")
         pl = spmd.shard_tree(params, ctx.specs, ctx.rules, mesh, r)
@@ -470,7 +473,8 @@ def test_decode_on_wrapped_rings_and_int8_caches(kv_quant):
     want, _ = step(params, toks[:, 20:21], pos, tree_map(torch.clone, caches))
 
     def rank(r, store):
-        gr = mesh_lib.groups(mesh, r, store=store, timeout=TIMEOUT)
+        gr = mesh_lib.groups(mesh, r, store=store, device="cpu",
+                             timeout=TIMEOUT)
         ctx = mesh_lib.make_context(mesh, r, gr, cfg)
         pl = spmd.shard_tree(params, ctx.specs, ctx.rules, mesh, r)
         cl = spmd.shard_tree(caches, specs, ctx.rules, mesh, r)
