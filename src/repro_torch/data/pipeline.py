@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import resolve_device
-from repro_torch.obs.trace import monotonic
+from repro_torch.obs.trace import PROFILER_TRACER, Tracer, monotonic
 
 
 @dataclass
@@ -75,14 +75,21 @@ class PrefetchLoader:
     JAX loader's ``sharding`` over the data axis).  ``shard=(r, world)``
     (one process per rank) splits the global batch into ``world`` shards
     and yields shard r alone, on the one device of ``device``: the same
-    tokens that shard r of the all-ranks loader gets."""
+    tokens that shard r of the all-ranks loader gets.
+
+    ``tracer`` (None: ``obs.trace.PROFILER_TRACER``) gets a ``data/wait``
+    span a batch around the wait for the producer (it was late) and a
+    ``data/h2d`` span around the copy and the device synchronize after
+    it, which drains the previous step's kernels."""
 
     def __init__(self, cfg: ModelConfig, batch: int, seq: int, *,
                  device: Placement = "cuda",
                  corpus: Optional[SyntheticCorpus] = None, depth: int = 2,
                  seed: int = 0, skip_batches: int = 0,
-                 shard: Optional[Tuple[int, int]] = None):
+                 shard: Optional[Tuple[int, int]] = None,
+                 tracer: Optional[Tracer] = None):
         self.cfg = cfg
+        self.tracer = PROFILER_TRACER if tracer is None else tracer
         self.batch = batch
         self.seq = seq
         self.sharded = isinstance(device, (list, tuple))
@@ -163,19 +170,22 @@ class PrefetchLoader:
         return t
 
     def __next__(self):
-        batch, t_load, t_prep = self.q.get()
+        with self.tracer.span("data/wait"):
+            batch, t_load, t_prep = self.q.get()
         t0 = monotonic()
         n = len(self.devices)
         out = {}
-        for k, v in batch.items():
-            if self.shard is not None:
-                shards = [np.split(v, self.shard[1])[self.shard[0]]]
-            else:
-                shards = np.split(v, n) if self.sharded else [v]
-            moved = [self._h2d(s, d) for s, d in zip(shards, self.devices)]
-            out[k] = moved if self.sharded else moved[0]
-        for d in {d for d in self.devices if d.type == "cuda"}:
-            torch.cuda.synchronize(d)
+        with self.tracer.span("data/h2d"):
+            for k, v in batch.items():
+                if self.shard is not None:
+                    shards = [np.split(v, self.shard[1])[self.shard[0]]]
+                else:
+                    shards = np.split(v, n) if self.sharded else [v]
+                moved = [self._h2d(s, d)
+                         for s, d in zip(shards, self.devices)]
+                out[k] = moved if self.sharded else moved[0]
+            for d in {d for d in self.devices if d.type == "cuda"}:
+                torch.cuda.synchronize(d)
         t_h2d = monotonic() - t0
         return out, BatchTimes(t_load, t_prep, t_h2d)
 

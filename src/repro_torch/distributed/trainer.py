@@ -57,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from datetime import timedelta
@@ -84,6 +85,7 @@ from repro_torch.models.common import (DeviceCountError, param_count,
                                        resolve_device, tree_items, tree_map,
                                        tree_unflatten)
 from repro_torch.obs import MetricsRegistry, Tracer
+from repro_torch.obs.trace import PROFILER_TRACER
 from repro_torch.optim import adamw as opt_lib
 from repro_torch.train import loop as loop_lib
 
@@ -249,7 +251,19 @@ class DataParallelTrainer:
     trainer.  The strategy and compressor may be names or instances.
     ``link_bw`` (bytes/s) prices Lemma 3.2; None takes
     :func:`default_link_bw`.  ``group_timeout`` bounds how long a
-    collective waits for its peers."""
+    collective waits for its peers.
+
+    ``tracer``: the caller's; without an enabled one the phase spans that
+    feed :class:`SyncReport` run on a private tracer.  The spans inside
+    the step (the model's, ``train/forward``/``train/backward``, and on
+    the overlapped path ``bucket_sync`` on the communication thread,
+    ``sync/wait``, ``train/optimizer`` and, after the step,
+    ``train/loss_sync``) open on ``step_tracer`` alone, which the caller
+    passes only to ask for them: a few hundred a step.  Without one they
+    go to ``obs.trace.PROFILER_TRACER``, seen only by a running
+    ``torch.profiler``.  The counters ``train/sync_bytes`` and
+    ``train/sync_calls`` count the gradient bytes and the bucket syncs
+    handed to the collectives."""
 
     # serial-bucketed calibration steps at the head of an overlapped run:
     # step 0 absorbs the one-time costs, step 1 supplies the clean serial
@@ -271,13 +285,16 @@ class DataParallelTrainer:
                  store=None,
                  group_timeout: timedelta = GROUP_TIMEOUT,
                  tracer: Optional[Tracer] = None,
-                 metrics: Optional[MetricsRegistry] = None):
+                 metrics: Optional[MetricsRegistry] = None,
+                 step_tracer: Optional[Tracer] = None):
         if bucket_mb <= 0:
             raise ValueError(f"bucket_mb must be > 0, got {bucket_mb}")
         self.cfg, self.run, self.opt = cfg, run, opt
         # the phase spans ARE the measurements: always a live clock
         self.tracer = (tracer if tracer is not None and tracer.enabled
                        else Tracer(enabled=True))
+        self._spans = PROFILER_TRACER if step_tracer is None else step_tracer
+        self._sync_count = threading.Lock()  # the comm threads count too
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.sync_overlap = bool(sync_overlap)
         self.bucket_mb = float(bucket_mb)
@@ -341,7 +358,7 @@ class DataParallelTrainer:
         self._calib: Dict[str, Any] = {}
         self._fused_steps: List[Dict[str, float]] = []
         self._summary: Optional[Dict[str, Any]] = None
-        self._grads_of = build_grad_fn(cfg, run)
+        self._grads_of = build_grad_fn(cfg, run, tracer=self._spans)
         self._axes = self._each(
             lambda i: self._make_axis(store, i, nested, group_timeout),
             sync=False)
@@ -621,6 +638,10 @@ class DataParallelTrainer:
         if ef is not None:
             for key, j in zip(keys, idx):
                 ef_leaves[j] = ef[key]
+        with self._sync_count:
+            self.metrics.inc("train/sync_calls")
+            self.metrics.inc("train/sync_bytes", sum(
+                t.numel() * t.element_size() for _, t in tree_items(g)))
         synced = self.strategy.sync(g, self._axes[i], self.dp)
         for key, j in zip(keys, idx):
             out[j] = synced[key]
@@ -691,15 +712,16 @@ class DataParallelTrainer:
         futures = []
 
         def comm(k, ready):
-            if stream is None:
-                return self._sync_bucket(i, k, g_leaves, ef_leaves, out)
-            with torch.cuda.device(dev), torch.cuda.stream(stream):
-                stream.wait_event(ready)
-                for j in plan.buckets[k]:  # made on the backward's stream
-                    g_leaves[j].record_stream(stream)
-                    if ef_leaves is not None:
-                        ef_leaves[j].record_stream(stream)
-                self._sync_bucket(i, k, g_leaves, ef_leaves, out)
+            with self._spans.span("bucket_sync", **bucket_span_args(plan, k)):
+                if stream is None:
+                    return self._sync_bucket(i, k, g_leaves, ef_leaves, out)
+                with torch.cuda.device(dev), torch.cuda.stream(stream):
+                    stream.wait_event(ready)
+                    for j in plan.buckets[k]:  # made on the backward's stream
+                        g_leaves[j].record_stream(stream)
+                        if ef_leaves is not None:
+                            ef_leaves[j].record_stream(stream)
+                    self._sync_bucket(i, k, g_leaves, ef_leaves, out)
 
         def on_leaf(j, g):
             g_leaves[j] = g
@@ -716,15 +738,18 @@ class DataParallelTrainer:
         for j, (_, g) in enumerate(tree_items(grads)):
             if g_leaves[j] is None:  # a leaf the loss does not reach
                 on_leaf(j, g)
-        for f in futures:
-            f.result()
+        with self._spans.span("sync/wait"):
+            for f in futures:
+                f.result()
         if stream is not None:
             cur = torch.cuda.current_stream(dev)
             cur.wait_stream(stream)
             for t in out:
                 t.record_stream(cur)
         del grads, g_leaves
-        return float(loss), self._finish(params, states, out, ef_leaves, i)
+        loss = float(loss)
+        with self._spans.span("train/optimizer"):
+            return loss, self._finish(params, states, out, ef_leaves, i)
 
     def _overlap_step(self, params, states, batch):
         """Fused overlapped step, timed as one span; the serial calibration
@@ -745,7 +770,8 @@ class DataParallelTrainer:
         m.observe("train/fused_step_s", wall)
         m.observe("train/exposed_comm_s", exposed)
         t_update = min(upd_s, max(wall - exposed, 0.0))
-        losses = self._losses([o[0] for o in outs])  # after the span
+        with self._spans.span("train/loss_sync"):  # after the step's span
+            losses = self._losses([o[0] for o in outs])
         return params, states, _step_metrics(losses, outs[0][1], exposed,
                                              t_update)
 

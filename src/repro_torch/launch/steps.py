@@ -30,10 +30,11 @@ from repro_torch.models import model as M
 from repro_torch.models.blocks import RunConfig
 from repro_torch.models.common import (abstractify, tree_items, tree_map,
                                        tree_unflatten)
+from repro_torch.obs import trace
 from repro_torch.optim import adamw as opt_lib
 
 
-def build_grad_fn(cfg: ModelConfig, run: RunConfig):
+def build_grad_fn(cfg: ModelConfig, run: RunConfig, tracer=None):
     """(params, batch[, on_leaf]) -> (loss, metrics, grads), with microbatch
     gradient accumulation when ``run.microbatch > 0`` (the paper's X_mini
     knob): the batch splits into n = B // microbatch pieces, their
@@ -46,10 +47,23 @@ def build_grad_fn(cfg: ModelConfig, run: RunConfig):
     in flatten order), with that leaf's final gradient: the tensor the
     returned tree holds.  A leaf the loss does not reach is not reported.
 
+    ``tracer`` (``obs.trace``; None: ``PROFILER_TRACER``, whose spans
+    exist only in a running ``torch.profiler``) is the process's current
+    tracer while the gradients are taken, so the model opens its spans on
+    it (``models/spans.py``); each pass is a ``train/forward`` span around
+    the loss and a ``train/backward`` span around its gradient.
+
     Under ``run.shard``: one rank's gradients of the whole batch's loss,
     landed on the ZeRO-1 layout (:func:`_build_sharded_grad_fn`)."""
+    tr = trace.PROFILER_TRACER if tracer is None else tracer
     if run.shard is not None:
-        return _build_sharded_grad_fn(cfg, run)
+        sharded = _build_sharded_grad_fn(cfg, run)
+
+        def sharded_grads_of(params, batch):
+            with trace.use(tr):
+                return sharded(params, batch)
+
+        return sharded_grads_of
 
     def value_and_grad(params, batch, hook=None):
         if run.bf16_grads:
@@ -62,12 +76,18 @@ def build_grad_fn(cfg: ModelConfig, run: RunConfig):
         if hook is not None:
             for j, (_, p) in enumerate(items):
                 p.register_hook(functools.partial(hook, j))
-        loss, metrics = M.loss_fn(tree_unflatten(items), batch, cfg, run)
-        grads = torch_grad(loss, [p for _, p in items])
+        with tr.span("train/forward"):
+            loss, metrics = M.loss_fn(tree_unflatten(items), batch, cfg, run)
+        with tr.span("train/backward"):
+            grads = torch_grad(loss, [p for _, p in items])
         return (loss.detach(), _detached(metrics),
                 tree_unflatten((path, g) for (path, _), g in zip(items, grads)))
 
     def grads_of(params, batch, on_leaf=None):
+        with trace.use(tr):
+            return accumulated(params, batch, on_leaf)
+
+    def accumulated(params, batch, on_leaf):
         if not run.microbatch:
             return value_and_grad(params, batch, on_leaf)
         B = batch["tokens"].shape[0]
@@ -121,28 +141,33 @@ def _detached(metrics):
 
 
 def build_train_step(cfg: ModelConfig, run: RunConfig, opt: opt_lib.OptConfig,
-                     *, grad_sync=None):
+                     *, grad_sync=None, tracer=None):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``grad_sync`` (optional) is applied to the gradient tree between the
     backward pass and the optimizer update: the hook through which a
     gradient-sync strategy (``repro_torch.distributed``) runs its
     collectives.  The parameters and moments are updated in place
-    (``optim.adamw.apply_updates``)."""
-
+    (``optim.adamw.apply_updates``).  ``tracer`` (None:
+    ``obs.trace.PROFILER_TRACER``): a ``train/step`` span a step, with the
+    optimizer's step count, around :func:`build_grad_fn`'s spans and a
+    ``train/optimizer`` span around the update."""
+    tr = trace.PROFILER_TRACER if tracer is None else tracer
     if run.shard is not None:
         if grad_sync is not None:
             raise ValueError("a sharded step lands its own gradients; "
                              "grad_sync is for the data-parallel trainers")
-        return _build_sharded_train_step(cfg, run, opt)
-    grads_of = build_grad_fn(cfg, run)
+        return _build_sharded_train_step(cfg, run, opt, tr)
+    grads_of = build_grad_fn(cfg, run, tracer=tr)
 
     def train_step(params, opt_state, batch):
-        loss, metrics, grads = grads_of(params, batch)
-        if grad_sync is not None:
-            grads = grad_sync(grads)
-        params, opt_state, gnorm = opt_lib.apply_updates(opt, params, grads,
-                                                         opt_state)
+        with tr.span("train/step", step=opt_state.get("step")):
+            loss, metrics, grads = grads_of(params, batch)
+            if grad_sync is not None:
+                grads = grad_sync(grads)
+            with tr.span("train/optimizer"):
+                params, opt_state, gnorm = opt_lib.apply_updates(
+                    opt, params, grads, opt_state)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm,
                                    **metrics}
 
@@ -200,14 +225,14 @@ def _build_sharded_grad_fn(cfg: ModelConfig, run: RunConfig):
 
 
 def _build_sharded_train_step(cfg: ModelConfig, run: RunConfig,
-                              opt: opt_lib.OptConfig):
+                              opt: opt_lib.OptConfig, tracer):
     """The train step as one rank of ``run.shard``: the landed gradients
     (:func:`_build_sharded_grad_fn`), clipped by the norm of the whole
     gradient, AdamW (``optim.adamw.apply_updates``, unchanged, its clip
     off since the shards' norm is not the gradient's) on this rank's
     shard, and the shard all-gathered back into the parameters."""
     ctx = run.shard
-    grads_of = _build_sharded_grad_fn(cfg, run)
+    grads_of = build_grad_fn(cfg, run, tracer=tracer)
     inner = dataclasses.replace(opt, grad_clip=0.0)
 
     def train_step(params, opt_state, batch):

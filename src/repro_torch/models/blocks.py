@@ -31,6 +31,7 @@ from repro_torch.configs.base import ModelConfig, SlotSpec
 from repro_torch.distributed import spmd
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import spans
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import ParamSpec, rms_norm
 
@@ -176,7 +177,9 @@ def _mlp_residual(p, h, cfg: ModelConfig, slot: SlotSpec, run: RunConfig,
     if "mlp_norm" not in p:
         return h, 0.0
     u = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
-    u, aux = _mlp_forward(p["mlp"], u, cfg, slot, run, seq)
+    u, aux = spans.layer(
+        "model/mlp", lambda x: _mlp_forward(p["mlp"], x, cfg, slot, run, seq),
+        u)
     if cfg.use_post_norm:
         u = rms_norm(u, p["mlp_post_norm"], cfg.norm_eps)
     return h + u, aux
@@ -199,8 +202,10 @@ def slot_forward(p, h, positions, cfg: ModelConfig, slot: SlotSpec,
     seq = ctx is not None and ctx.seq_parallel
     partial = _mixer_partial(p["mixer"], cfg, slot)
     u = rms_norm(h, p["mixer_norm"], cfg.norm_eps)
-    u, cache = _mixer_forward(p["mixer"], spmd.enter(u, ctx, seq, partial),
-                              positions, cfg, slot, run)
+    u, cache = spans.layer(
+        "model/mixer",
+        lambda x: _mixer_forward(p["mixer"], x, positions, cfg, slot, run),
+        spmd.enter(u, ctx, seq, partial))
     u = spmd.leave(u, ctx, seq, partial=partial)
     if ctx is not None and slot.mixer != "mamba":
         cache = {k: spmd.local_seq(v, ctx) for k, v in cache.items()}

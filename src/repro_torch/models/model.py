@@ -33,6 +33,10 @@ leaves' local shapes (``launch/steps.py`` builds the steps): the
 vocab-parallel embedding and LM head, the residual sequence-sharded over
 ``model``, FSDP's per-layer gather, and a loss whose gradient summed over
 the ranks is the whole batch's.  Without it, every path is the one above.
+
+The embedding, each cycle, each mixer and MLP, and the head with the loss
+are spans on the process's current tracer (``models/spans.py``), which
+a train step sets for its duration.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, SlotSpec
 from repro_torch.distributed import spmd
+from repro_torch.models import spans
 from repro_torch.models.blocks import (RunConfig, check_slot,
                                        slot_cache_specs, slot_decode,
                                        slot_extend, slot_forward, slot_specs)
@@ -225,12 +230,16 @@ def run_cycles(slots, h, positions, cfg: ModelConfig, run: RunConfig,
         if run.shard is not None:  # FSDP: this cycle's leaves, gathered
             layer = {n: spmd.fsdp_gather(layer[n], run.shard.layer_spec(n),
                                          run.shard, 1) for n in layer}
-        caches = {}
-        for n, slot in pattern:
-            h, caches[n], a = slot_forward(layer[n], h, positions, cfg, slot,
-                                           run)
-            aux = aux + a
-        return h, caches, aux
+
+        def slots_of(h):
+            caches, a_sum = {}, aux
+            for n, slot in pattern:
+                h, caches[n], a = slot_forward(layer[n], h, positions, cfg,
+                                               slot, run)
+                a_sum = a_sum + a
+            return h, caches, a_sum
+
+        return spans.layer("model/block", slots_of, h)
 
     # remat only where there is a backward to recompute for (training)
     remat = run.remat == "block" and h.requires_grad and not with_cache
@@ -285,19 +294,20 @@ def masked_loss(logits, labels, aux, aux_weight: float = AUX_WEIGHT):
     return ce + aux_weight * aux, ce
 
 
-def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            run: RunConfig, with_cache: bool = False, last_only: bool = False):
-    """Full-sequence forward over ``batch["tokens"]`` (B,S) or (B,S,K),
-    after ``batch["image_embeds"]`` (B,n_img,D) where given.  Returns
-    (logits, caches, aux_loss); caches are stacked (cycles, B, S, ...) per
-    slot (and (first_k_dense, B, S, ...) under ``prelude``).  Under
-    ``run.shard`` the logits are this rank's vocab columns, and
-    ``last_only`` gives the last position's alone (prefill)."""
+def _stack(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+           run: RunConfig, with_cache: bool):
+    """Everything before the final norm: (the compute-dtype params, the
+    last hidden state, positions, the FSDP-gathered top leaves under
+    ``run.shard`` (else None), the prelude's and the cycles' caches, aux)."""
     check_ported(cfg)
     params = cast_params(params, cfg)
     ctx = run.shard
+    top = None
     if ctx is None:
-        h = embed_tokens(params, batch, cfg)
+        h = spans.layer(
+            "model/embed",
+            lambda table: embed_tokens({**params, "embed": table}, batch, cfg),
+            params["embed"])
         positions = positions_of(h)
     else:
         top = _top_leaves(params, ctx)
@@ -309,6 +319,20 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     h, pre = run_prelude(params, h, positions, cfg, run, with_cache)
     h, per_cycle, aux = run_cycles(params["slots"], h, positions, cfg, run,
                                    main_cycles(cfg), with_cache)
+    return params, h, positions, top, pre, per_cycle, aux
+
+
+def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            run: RunConfig, with_cache: bool = False, last_only: bool = False):
+    """Full-sequence forward over ``batch["tokens"]`` (B,S) or (B,S,K),
+    after ``batch["image_embeds"]`` (B,n_img,D) where given.  Returns
+    (logits, caches, aux_loss); caches are stacked (cycles, B, S, ...) per
+    slot (and (first_k_dense, B, S, ...) under ``prelude``).  Under
+    ``run.shard`` the logits are this rank's vocab columns, and
+    ``last_only`` gives the last position's alone (prefill)."""
+    params, h, positions, top, pre, per_cycle, aux = _stack(
+        params, batch, cfg, run, with_cache)
+    ctx = run.shard
     if ctx is None:
         logits = head_logits(params, h, cfg)
     else:
@@ -342,18 +366,29 @@ def loss_fn(params, batch, cfg: ModelConfig, run: RunConfig,
     with -1 in front).  Returns (loss, {"ce", "aux"}).  ``count`` (under
     ``run.shard`` only): the global token count the CE is normalised by,
     where the caller counted it (a microbatch's); None: this batch's."""
-    logits, _, aux = forward(params, batch, cfg, run)
+    if run.shard is not None:
+        logits, _, aux = forward(params, batch, cfg, run)
+        return _loss_sharded(logits, _labels(batch), aux, aux_weight, cfg,
+                             run.shard, count)
+    params, h, _, _, _, _, aux = _stack(params, batch, cfg, run, False)
+    labels = _labels(batch)
+    loss, ce = spans.layer(
+        "model/head_loss",
+        lambda x: masked_loss(head_logits(params, x, cfg), labels, aux,
+                              aux_weight), h)
+    return loss, {"ce": ce, "aux": aux}
+
+
+def _labels(batch):
+    """The labels over the whole sequence: an image prefix carries none
+    (-1 in front)."""
     labels = batch["labels"]
     if "image_embeds" in batch:
         n_img = batch["image_embeds"].shape[1]
         pad = labels.new_full(labels.shape[:1] + (n_img,) + labels.shape[2:],
                               -1)
         labels = torch.cat([pad, labels], dim=1)
-    if run.shard is not None:
-        return _loss_sharded(logits, labels, aux, aux_weight, cfg, run.shard,
-                             count)
-    loss, ce = masked_loss(logits, labels, aux, aux_weight)
-    return loss, {"ce": ce, "aux": aux}
+    return labels
 
 
 # ---------------------------------------------------------------------------

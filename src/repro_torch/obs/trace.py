@@ -1,42 +1,60 @@
-"""Tracer — nestable wall-clock spans with Chrome-trace export.
+"""Tracer — nestable wall-clock spans, bridged into ``torch.profiler``.
 
 The paper's whole method is *measure, then configure*: Lemma 3.1/3.2 only
 pay off when step time, comm time, and overlap are observable quantities.
-Until this module every hot path timed itself with scattered
-``time.perf_counter()`` pairs and threw the measurement away at process
-exit.  ``Tracer`` is the one clock those paths share:
+``Tracer`` is the one clock the port's hot paths share:
 
 - ``with tracer.span("dist_update") as sp: ...`` times a phase; the span's
-  ``elapsed_s`` is exactly the ``perf_counter()`` pair it replaces, so the
-  values that feed ``SyncReport`` / ``GenResult.stats()`` are unchanged —
-  the span *additionally* lands in the tracer's event log.
+  ``elapsed_s`` is exactly a ``perf_counter()`` pair, so the values that
+  feed ``SyncReport`` / ``GenResult.stats()`` are measured the same way
+  they always were — the span *additionally* lands in the tracer's event
+  log.
 - Spans nest (``span("step")`` around ``span("bucket_sync", bucket=i)``);
   the recorded depth/intervals reconstruct the phase tree offline.
-- ``chrome_trace()`` / ``save()`` export the Chrome ``traceEvents`` JSON
-  (load in ``chrome://tracing`` or https://ui.perfetto.dev).
+- An enabled tracer brackets every span with
+  ``torch.profiler.record_function(name)``: while ``torch.profiler`` records
+  on the span's thread (the thread that started it, and the autograd
+  engine's threads during a backward pass), the span is a
+  ``user_annotation`` event of its Chrome trace, on the profiler's clock
+  and on the thread that opened it, so the device's kernels can be joined
+  to the span their launch fell in.  Threads the program starts itself
+  (the loader's producer, the trainer's communication thread) are not
+  followed by the profiler: their spans are in the tracer's log alone.
+- ``chrome_trace()`` / ``save()`` export the tracer's own log as Chrome
+  ``traceEvents`` JSON (load in ``chrome://tracing`` or Perfetto).
 - A *disabled* tracer is free: ``span()`` returns a shared no-op singleton
   (no event, no allocation that survives the call), so library code can
   trace unconditionally.
-- ``nvtx_annotations=True`` additionally brackets every span with a
-  ``torch.cuda.nvtx`` range so a device-side profile collected with
-  ``torch.profiler`` carries the same phase names.
+- :data:`PROFILER_TRACER` records no event of its own: its spans are
+  ``record_function`` brackets that open only while ``torch.profiler``
+  records on the calling thread, and the shared no-op otherwise.  Steps
+  and loaders built without a tracer use it, so a profile of them carries
+  the program's phase names with no flag.
+- :func:`current` is the process's current tracer (:data:`NULL_TRACER`
+  unless a step set one with :func:`use`): the model's code reads it, so
+  its functions take no tracer argument.  It is process-wide, not per
+  thread, because block remat's recompute and the whole backward pass run
+  on the autograd engine's thread.
 - A span times host wall clock only.  Callers whose span covers device
   work end it after a host sync (a ``.cpu()`` of the result or
   ``torch.cuda.synchronize()``), so the span length is the measurement.
 
-Import-light by design (stdlib only unless annotations are enabled): the
-rest of ``repro_torch.obs`` must be usable without pulling in torch.
+Import-light by design: stdlib only, and torch only once an enabled span
+opens (a disabled tracer never imports it), so the rest of
+``repro_torch.obs`` is usable without a backend.
 """
 from __future__ import annotations
 
 import json
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
 
-__all__ = ["Span", "SpanEvent", "Tracer", "NULL_TRACER", "monotonic"]
+__all__ = ["Span", "SpanEvent", "Tracer", "NULL_TRACER", "PROFILER_TRACER",
+           "current", "use", "monotonic"]
 
 
 def monotonic() -> float:
@@ -45,6 +63,22 @@ def monotonic() -> float:
     a span) read time through here, so this module stays the *only* place
     in ``repro_torch`` that touches ``time`` directly."""
     return time.perf_counter()
+
+
+def _annotation(name: str):
+    """An entered ``torch.profiler.record_function(name)``."""
+    from torch.profiler import record_function
+
+    ann = record_function(name)
+    ann.__enter__()
+    return ann
+
+
+def _profiling() -> bool:
+    """Whether ``torch.profiler`` records on the calling thread (never
+    without torch loaded)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
 
 
 @dataclass(frozen=True)
@@ -79,6 +113,27 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+class _ProfilerSpan:
+    """A ``record_function`` bracket and nothing else: a span of
+    :data:`PROFILER_TRACER`, opened while the profiler records."""
+
+    __slots__ = ("name", "_ann")
+    elapsed_s = 0.0
+
+    def __init__(self, name: str):
+        self.name = name
+        self._ann = None
+
+    def __enter__(self) -> "_ProfilerSpan":
+        self._ann = _annotation(self.name)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._ann.__exit__(*exc)
+        self._ann = None
+        return False
+
+
 class Span:
     """A live span; use as a context manager.  ``elapsed_s`` after exit is
     the phase wall clock (mid-flight it reads the running elapsed)."""
@@ -106,18 +161,14 @@ class Span:
         stack = tr._thread_stack()
         self.depth = len(stack)
         stack.append(self.name)
-        if tr.nvtx_annotations:
-            self._ann = tr._annotation(self.name)
-            if self._ann is not None:
-                self._ann.__enter__()
-        self.t0 = tr._clock()  # last: annotation setup stays untimed
+        self._ann = _annotation(self.name)
+        self.t0 = tr._clock()  # last: the annotation stays untimed
         return self
 
     def __exit__(self, *exc) -> bool:
         self.t1 = self.tracer._clock()  # first: recording stays untimed
-        if self._ann is not None:
-            self._ann.__exit__(*exc)
-            self._ann = None
+        self._ann.__exit__(*exc)
+        self._ann = None
         self.tracer._record(self)
         return False
 
@@ -131,10 +182,9 @@ class Tracer:
     """
 
     def __init__(self, enabled: bool = True, *, max_events: int = 100_000,
-                 nvtx_annotations: bool = False, clock=time.perf_counter):
+                 clock=time.perf_counter):
         self._enabled = bool(enabled)
         self.max_events = int(max_events)
-        self.nvtx_annotations = bool(nvtx_annotations)
         self._clock = clock
         self._epoch = clock()
         self._events: List[SpanEvent] = []
@@ -159,14 +209,6 @@ class Tracer:
         if stack is None:
             stack = self._local.stack = []
         return stack
-
-    @staticmethod
-    def _annotation(name: str):
-        import torch
-
-        if not torch.cuda.is_available():  # nvtx needs the CUDA runtime
-            return None
-        return torch.cuda.nvtx.range(name)
 
     def _record(self, span: Span) -> None:
         stack = self._thread_stack()
@@ -193,17 +235,6 @@ class Tracer:
         """Summed duration of every span named ``name`` — the reconciliation
         hook: phase span sums must match the legacy perf_counter totals."""
         return sum(e.dur_s for e in self._events if e.name == name)
-
-    def summarize(self) -> Dict[str, Dict[str, float]]:
-        """Per-name count/total/mean/min/max over the recorded spans."""
-        acc: Dict[str, List[float]] = {}
-        for e in self._events:
-            acc.setdefault(e.name, []).append(e.dur_s)
-        return {
-            name: {"count": float(len(ds)), "total_s": sum(ds),
-                   "mean_s": sum(ds) / len(ds),
-                   "min_s": min(ds), "max_s": max(ds)}
-            for name, ds in sorted(acc.items())}
 
     def clear(self) -> None:
         self._events = []
@@ -240,7 +271,64 @@ class Tracer:
         return len(self._events)
 
 
+class _ProfilerTracer(Tracer):
+    """:data:`PROFILER_TRACER`'s class: enabled exactly while
+    ``torch.profiler`` records on the calling thread; its spans are
+    ``record_function`` brackets and land in no log of its own."""
+
+    def __init__(self):
+        super().__init__(enabled=False, max_events=0)
+
+    @property
+    def enabled(self) -> bool:
+        return _profiling()
+
+    def span(self, name: str, **args) -> Union[_ProfilerSpan, _NullSpan]:
+        return _ProfilerSpan(name) if _profiling() else NULL_SPAN
+
+
 # One shared disabled tracer: hot paths default to it so tracing is always
 # written unconditionally (`with tracer.span(...)`) and costs ~a dict lookup
 # when nobody is listening.
 NULL_TRACER = Tracer(enabled=False)
+# The tracer of a step or loader built without one: its spans exist only in
+# a running torch.profiler's trace.
+PROFILER_TRACER = _ProfilerTracer()
+
+_current: Tracer = NULL_TRACER
+_users = 0
+_lock = threading.Lock()
+
+
+def current() -> Tracer:
+    """The process's current tracer: the one a running step set with
+    :func:`use`, else :data:`NULL_TRACER`."""
+    return _current
+
+
+class use:
+    """``with use(tracer):`` makes ``tracer`` the process's current tracer
+    until the block ends.  Overlapping blocks (the ranks of an all-ranks
+    trainer, one thread each) share the first block's tracer until the
+    last of them ends."""
+
+    __slots__ = ("tracer",)
+
+    def __init__(self, tracer: Tracer):
+        self.tracer = tracer
+
+    def __enter__(self) -> Tracer:
+        global _current, _users
+        with _lock:
+            if not _users:
+                _current = self.tracer
+            _users += 1
+            return _current
+
+    def __exit__(self, *exc) -> bool:
+        global _current, _users
+        with _lock:
+            _users -= 1
+            if not _users:
+                _current = NULL_TRACER
+        return False

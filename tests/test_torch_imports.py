@@ -1,6 +1,7 @@
 """Import guard: the port (``src/repro_torch``), its benchmarks
 (``benchmarks/torch_*.py``), its tools (``tools/torch_*.py``), its
-examples (``examples/torch_*.py``) and ``chip_smoke.py`` import neither
+examples (``examples/torch_*.py``), the tests that hold it to nothing of
+JAX's (``PORT_TESTS``) and ``chip_smoke.py`` import neither
 JAX (nor ``ml_dtypes``, which the card's machine lacks) nor anything of
 the JAX package ``repro``; they keep their own copies of what they need.
 A static AST scan, so it also covers imports inside functions.  Each
@@ -16,8 +17,10 @@ REPO = Path(__file__).resolve().parent.parent
 BENCHMARKS = sorted((REPO / "benchmarks").glob("torch_*.py"))
 TOOLS = sorted((REPO / "tools").glob("torch_*.py"))
 EXAMPLES = sorted((REPO / "examples").glob("torch_*.py"))
+# the port's own tests that hold it to nothing of JAX's
+PORT_TESTS = [REPO / "tests" / "test_torch_trace_spans.py"]
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + BENCHMARKS + \
-    TOOLS + EXAMPLES + [REPO / "chip_smoke.py"]
+    TOOLS + EXAMPLES + PORT_TESTS + [REPO / "chip_smoke.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -66,7 +69,9 @@ def test_scan_sees_every_module():
                 "src/repro_torch/distributed/layout.py",
                 "src/repro_torch/launch/dryrun.py",
                 "src/repro_torch/analysis/mesh_axes.py",
-                "benchmarks/torch_roofline.py"):
+                "benchmarks/torch_roofline.py",
+                "src/repro_torch/models/spans.py",
+                "tests/test_torch_trace_spans.py"):
         assert REPO / new in FILES, new
     assert _forbidden("repro.models") and _forbidden("jax.numpy")
     assert _forbidden("ml_dtypes")
