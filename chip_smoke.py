@@ -55,6 +55,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
    (their event time, where the profiler did not measure both).
    The paged kernel's library yardstick is gather_kv_blocks followed by
    SDPA, timed together; the scan has no single PyTorch call (null).
+5b. the fp32 training attention — flash_attention_train's three kernels
+   (forward, dQ, dK/dV) at both granite training cells' shapes (B 2, S
+   4096 and B 4, S 512; H 32, KV 8, D 64) and at D 128 (B 1, S 2048, H 56,
+   KV 8): output and the three gradients held to fp32 dense_attention
+   under autograd (within 1e-4 of the largest |reference|), each entry's
+   device time (one kernel a call) beside its bound (its products at the
+   67 TFLOP/s fp32 peak), the forward and backward's event and device
+   time, and beside them the event time of the same forward and backward
+   through chunked_attention, dense_attention (where its S x S logits fit)
+   and, as a yardstick only, fp32 SDPA (is_causal, enable_gqa).
 6. mamba layer — one full-width mamba2-780m ssm_forward layer (random
    weights from seed 0, x (1, 2048, 1536) bf16) with impl="kernel" against
    impl="auto" on the same values in fp32, at tests/test_kernels.py's bf16
@@ -69,8 +79,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    held to its plain variant on the same inputs.  Then host_microbench()
    and choose_conv_algs(128, the card's memory).
 
-8. train — the training path, which launches none of the four kernels
-   (their counters are zeroed before and must read 0 after):
+8. train — the training path, which launches none of the four serving
+   kernels and, on the card in fp32, the training attention (every
+   counter zeroed before; after, exactly 8.2's forward and recompute of
+   its two layers, 4 forward launches, 2 dK/dV and 2 dQ, and nothing
+   else: the bf16 runs take the chunked and dense paths):
    Session.train() of full-width granite-3-2b (40 layers, random weights
    from seed 0; batch 4 x seq 512, 4 steps, RunConfig(attn_impl="auto",
    remat="block"), AdamW with warmup 1 on fp32 masters held on the card):
@@ -149,8 +162,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
    Session(JobSpec(granite-3-2b, train_4k), calibration=...).plan() is
    priced on "h100-sxm+cal"; it prints its est_step_time beside the data
    sheet's.
-13. pipeline — 1F1B pipeline parallelism, no kernel launches (counters
-   zeroed before, 0 after): (1) Session(JobSpec(granite-3-2b,
+13. pipeline — 1F1B pipeline parallelism, no serving kernel launches; the
+   fp32 13.2 runs the training attention, exactly 2 steps x 4 microbatches
+   x 4 layers for each trainer: 160 forward (the 1F1B trainer's fwd op,
+   its bwd op's recompute and block remat's inside it; the single-stage
+   trainer's forward and recompute), 64 dK/dV, 64 dQ, and nothing else
+   (counters zeroed before): (1)
+   Session(JobSpec(granite-3-2b,
    reduced=False, pipe 2, n_microbatch 4, batch 4, seq 512, 3
    steps)).train() at full width (40 layers, 20 cycles a stage, both
    stages on this card, the session's own sync, auto attention and block
@@ -297,7 +315,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    library's extern "C" query (it launches nothing) reports, for every
    instantiation of B1-B4 (flash D 64/128; the split kernel linear and
    paged and the combine at D 64/128; the scan's three passes at P 32/64
-   x N 16-128, chunk 256), the registers, spill bytes, static shared
+   x N 16-128, chunk 256) and of the training attention (forward, dQ,
+   dK/dV at D 64/128), the registers, spill bytes, static shared
    memory and most threads (cudaFuncGetAttributes), the dynamic shared
    memory its launch sets and the blocks an SM can hold at that size
    (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  One line each:
@@ -310,7 +329,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    checkout (exit 0, no stale suppression); no kernel launched.
 
 20. sharded — the explicit rank program (distributed/spmd.py) and its
-   meta dry run, no kernel launches (counters zeroed before, 0 after):
+   meta dry run, no serving kernel launches; the fp32 granite steps of (2)
+   and (4) run the training attention, exactly 1,200 forward (600 layer
+   passes, each forward and recompute), 600 dK/dV and 600 dQ, and nothing
+   else (counters zeroed before):
    (1) expert parallel at deepseek-v2 width (E 160, k 6, D 5120, F 1536,
    T 2048, bf16): moe_mlp_sharded on a one-rank NCCL group bitwise equal
    to moe_mlp, and the sum of _local_expert_pass over 4 and over 8
@@ -322,7 +344,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    |want|, but 2 * lr + 2e-4 where the clipped gradient is below
    100 * eps), run under the dry run's FLOP counter and memory meter:
    the meta dry run of the same step must give the real tensors'
-   argument bytes and the real step's FLOPs exactly, and its temp bytes
+   argument bytes exactly, its FLOPs the real step's plus exactly the
+   attention products that the meta step runs in plain PyTorch and the
+   real step in the training kernels, outside the FLOP counter's view
+   (16 B H S^2 D a layer: the two products, forward, recompute and their
+   four gradients), and its temp bytes
    within 15% of what the real step allocated beyond what was allocated
    before it (torch.cuda.max_memory_allocated() less memory_allocated()
    before the step, so nothing an earlier phase left in the allocator
@@ -368,13 +394,26 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:103",
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:145",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:73",
+    "flash_attention_train": "none: the JAX package trains attention in "
+    "XLA (models/attention.py, dense or chunked); its Pallas kernel has no "
+    "backward",
 }
 SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "paged_decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+    "flash_attention_train": "src/repro_torch/csrc/flash_attention_train.cu",
 }
+H100_FP32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
+
+
+def train_attention(fwd: int, bwd: int) -> dict:
+    """The launches of the fp32 training attention on a path that runs
+    ``fwd`` forwards of an attention layer (a step under block remat runs
+    each layer's twice: forward and recompute) and ``bwd`` backwards."""
+    return {"flash_train_fwd": fwd, "flash_train_dkdv": bwd,
+            "flash_train_dq": bwd}
 
 
 def fail(msg: str) -> None:
@@ -516,6 +555,95 @@ def flash_case(torch, mods, *, S, window=0, cap=0.0, B=1, H=32, KV=8, D=64,
     b_ms, b_by = bound(nbytes, 4 * D * pairs * H * B)
     return dict(max_abs_err=err.max().item(), bound_ms=b_ms, bound_by=b_by,
                 **times)
+
+
+def flash_train_case(torch, *, B, S, H, KV, D, seed=0, dev="cuda"):
+    """Phase 5b: the fp32 training attention's forward and backward against
+    fp32 dense_attention under autograd, each entry's device time beside
+    its bound, and the same forward and backward through the plain paths
+    and fp32 SDPA (a yardstick)."""
+    from repro_torch.kernels import flash_attention_train as fat
+    from repro_torch.models.attention import chunked_attention, dense_attention
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(B, S, n, D, generator=g, device=dev)
+               for n in (H, KV, KV))
+    dout = torch.randn(B, S, H, D, generator=g, device=dev)
+    pos = torch.arange(S, device=dev)[None].expand(B, S)
+    scale = D ** -0.5
+
+    def fwd_bwd(fn):
+        def run():
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+            out = fn(qq, kk, vv)
+            return (out.detach(),) + torch.autograd.grad(
+                out, (qq, kk, vv), dout)
+        return run
+
+    kernel = fwd_bwd(lambda *a: fat.flash_attention_train(
+        *a, pos, pos, scale=scale))
+    got = kernel()
+    sync(torch)
+    dense_fits = B * H * S * S * 4 * 6 < 40e9  # logits, probs and grads
+    if dense_fits:
+        want = fwd_bwd(lambda *a: dense_attention(*a, pos, pos,
+                                                  scale=scale))()
+        err = max((a - w).abs().max().item() / w.abs().max().item()
+                  for a, w in zip(got, want))
+        del want
+        if err > 1e-4:
+            fail(f"flash_attention_train B={B} S={S} D={D}: |err| {err} of "
+                 "the largest |reference|, over 1e-4")
+    else:
+        err = None
+    o, lse = fat.flash_forward(q, k, v, pos, pos, scale=scale)
+    dq, delta = fat.flash_backward_dq(q, k, v, o, lse, dout, pos, pos,
+                                      scale=scale)
+    # the products each entry runs: forward S, PV; dQ S, dP, dQ; dK/dV S,
+    # dP, dV, dK; 2 D FLOPs each per kept (query, key) pair and head
+    unit = 2 * D * H * B * S * (S + 1) / 2
+    r = {"max_rel_err": err}
+    for name, fn, products in (
+            ("fwd", lambda: fat.flash_forward(q, k, v, pos, pos,
+                                               scale=scale), 2),
+            ("dq", lambda: fat.flash_backward_dq(q, k, v, o, lse, dout, pos,
+                                                 pos, scale=scale), 3),
+            ("dkdv", lambda: fat.flash_backward_dkdv(
+                q, k, v, lse, delta, dout, pos, pos, scale=scale), 4)):
+        r[f"{name}_device_ms"] = device_ms(torch, fn, 1)
+        r[f"{name}_bound_ms"] = products * unit / H100_FP32_FLOPS * 1e3
+    parts = [r[f"{name}_device_ms"] for name in ("fwd", "dq", "dkdv")]
+    r.update(ms=time_ms(torch, kernel, iters=5),
+             device_ms=None if None in parts else sum(parts),
+             bound_ms=9 * unit / H100_FP32_FLOPS * 1e3, bound_by="operations",
+             chunked_ms=time_ms(torch, fwd_bwd(lambda *a: chunked_attention(
+                 *a, pos, pos, scale=scale)), iters=3),
+             dense_ms=time_ms(torch, fwd_bwd(lambda *a: dense_attention(
+                 *a, pos, pos, scale=scale)), iters=3) if dense_fits else None,
+             library_ms=time_ms(torch, fwd_bwd(
+                 lambda qq, kk, vv: F.scaled_dot_product_attention(
+                     qq.transpose(1, 2), kk.transpose(1, 2),
+                     vv.transpose(1, 2), is_causal=True, scale=scale,
+                     enable_gqa=True).transpose(1, 2)), iters=5))
+    r["plain_ms"] = r["chunked_ms"]
+    r["library_device_ms"] = None
+    return r
+
+
+def print_train_case(name, r) -> None:
+    err = r["max_rel_err"]
+    print(f"[kernel] {name}: max |err| "
+          f"{'not compared' if err is None else f'{err:.3e}'} of the "
+          f"largest |dense|; device ms (bound at 67 TFLOP/s fp32): forward "
+          f"{dev_ms(r['fwd_device_ms'])} ({r['fwd_bound_ms']:.4f}), dQ "
+          f"{dev_ms(r['dq_device_ms'])} ({r['dq_bound_ms']:.4f}), dK/dV "
+          f"{dev_ms(r['dkdv_device_ms'])} ({r['dkdv_bound_ms']:.4f}); forward "
+          f"and backward {r['ms']:.4f} ms (the three entries' device time "
+          f"{dev_ms(r['device_ms'])}, bound {r['bound_ms']:.4f}); "
+          f"chunked_attention {r['chunked_ms']:.4f}"
+          f" ms, dense_attention {ms_or_null(r['dense_ms'])} ms, fp32 SDPA "
+          f"(yardstick) {r['library_ms']:.4f} ms, event times of the same "
+          f"forward and backward", flush=True)
 
 
 def decode_case(torch, mods, *, B, S, pos, window=0, cap=0.0, H=32, KV=8,
@@ -1108,10 +1236,14 @@ def train_phase(torch, wrappers) -> None:
     torch.cuda.empty_cache()
     moved = {name: fn.launches for name, fn in wrappers.items()
              if fn.launches}
-    if moved:
-        fail(f"the training path launched kernels: {moved}")
-    print("[train] no kernel launched on the training path", flush=True)
-    return threaded
+    want = train_attention(fwd=4, bwd=2)  # 8.2's two fp32 layers
+    if moved != want:
+        fail(f"the training path launched {moved}, want {want}: the fp32 "
+             "training attention on 8.2's step alone")
+    print(f"[train] launches on the training path: {moved} (8.2's fp32 "
+          "step: forward and recompute of two layers, a dK/dV and a dQ "
+          "each; the bf16 runs launch nothing)", flush=True)
+    return threaded, sum(moved.values())
 
 
 def free_port() -> int:
@@ -1514,6 +1646,7 @@ def tune_session_phase(torch, wrappers) -> None:
     from repro_torch.api import JobSpec, Session, validate_report
     from repro_torch.core import memory_model as mm
     from repro_torch.core.autotune import Calibration, cached_calibration
+    from repro_torch.kernels import flash_attention_train as fat
     from repro_torch.kernels import ops
 
     def counted(fn):
@@ -1619,8 +1752,11 @@ def tune_session_phase(torch, wrappers) -> None:
               f"{launches2}", flush=True)
         del again, rep2
 
-        # 12.3: train() adopts the tuned knobs
+        # 12.3: train() adopts the tuned knobs; it trains in bf16, so the
+        # fp32 training attention launches nothing either
+        zero_counts(torch, fat.ENTRIES)
         trep, launches3 = counted(session.train)
+        launches3.update(read_counts(torch, fat.ENTRIES))
         validate_report(trep.to_dict())
         run, _ = session.build_run_opt()
         want_attn = ("dense" if t["kernels"]["flash_attention"]["chosen"]
@@ -1780,9 +1916,16 @@ def pipeline_phase(torch, wrappers, triad_12: float) -> None:
     torch.cuda.empty_cache()
     moved = {name: fn.launches for name, fn in wrappers.items()
              if fn.launches}
-    if moved:
-        fail(f"phase 13 launched kernels: {moved}")
-    print("[pipeline] no kernel launched on the pipeline path", flush=True)
+    # 13.2's fp32 trainers: 2 steps x 4 microbatches x 4 layers each, the
+    # 1F1B trainer's layer forward three times (its fwd op under no_grad,
+    # its bwd op's recompute of the stage, block remat's recompute inside
+    # that), the single-stage trainer's twice
+    want = train_attention(fwd=2 * 4 * 4 * (3 + 2), bwd=2 * 2 * 4 * 4)
+    if moved != want:
+        fail(f"phase 13 launched {moved}, want {want}: the fp32 training "
+             "attention on 13.2 alone")
+    print(f"[pipeline] launches on the pipeline path: {moved} (13.2's fp32 "
+          "trainers; 13.1's bf16 session launches nothing)", flush=True)
 
     # 13.3: C6's triad beside phase 12's calibration, and one fused pass
     # a timed call, where the fixed cost of the call (launch and
@@ -2000,8 +2143,18 @@ def sharded_phase(torch, wrappers) -> None:
         fail(f"the sharded step at (1, 1) and the unsharded step disagree: "
              f"loss {loss} vs {loss_ref}, params {worst_p} ({worst_eps} "
              f"where the gradient is below 100 * eps)")
+    # the meta step runs attention in plain PyTorch, the real one in the
+    # training kernels, which the FLOP counter does not see: the two
+    # products, forward and recompute, and their four gradients
+    rows, seq = toks.shape
+    attn_flops = (LAYERS * 16 * rows * cfg.num_heads * seq * seq
+                  * cfg.head_dim)
+    print(f"[sharded] 20.2 FLOPs: meta {meta['flops']} = real "
+          f"{real['flops']} + the attention products the kernels run "
+          f"{attn_flops}: {meta['flops'] == real['flops'] + attn_flops}",
+          flush=True)
     if meta["argument_bytes"] != real["argument_bytes"] or \
-            meta["flops"] != real["flops"]:
+            meta["flops"] != real["flops"] + attn_flops:
         fail("the meta dry run's argument bytes or FLOPs differ from the "
              "real step's")
     if not 0.85 <= ratio <= 1.15:
@@ -2096,9 +2249,14 @@ def sharded_phase(torch, wrappers) -> None:
     finally:
         shutil.rmtree(out, ignore_errors=True)
     moved = {n: c for n, c in read_counts(torch, wrappers).items() if c}
-    if moved:
-        fail(f"phase 20 launched kernels: {moved}")
-    print(f"[sharded] no kernel launched; phase wall "
+    # fp32 granite, 40 layers: 20.2's two steps (1 + 1 pass of the batch),
+    # 20.4's two steps and its two gradients (4 + 4 + 4 + 1 passes)
+    want = train_attention(fwd=2 * LAYERS * 15, bwd=LAYERS * 15)
+    if moved != want:
+        fail(f"phase 20 launched {moved}, want {want}: the fp32 training "
+             "attention on 20.2's and 20.4's steps alone")
+    print(f"[sharded] launches {moved}, the fp32 training attention on "
+          f"20.2's and 20.4's steps; phase wall "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
@@ -3667,6 +3825,7 @@ def main() -> None:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import flash_attention_train as fat
     from repro_torch.kernels import ssd_scan as ssd_k
     from repro_torch.models import model as M
     from repro_torch.models import ssm
@@ -3827,6 +3986,19 @@ def main() -> None:
           "(ssd_chunked_ms)", flush=True)
     cases += new_cases
 
+    # 5b. the fp32 training attention ------------------------------------------
+    for name, kw in (
+            ("flash_attention_train[granite-train-s4k: B=2,S=4096,H=32,KV=8,"
+             "D=64]", dict(B=2, S=4096, H=32, KV=8, D=64)),
+            ("flash_attention_train[granite-train-s512-dp4, a rank: B=4,S=512,"
+             "H=32,KV=8,D=64]", dict(B=4, S=512, H=32, KV=8, D=64)),
+            ("flash_attention_train[D=128: B=1,S=2048,H=56,KV=8]",
+             dict(B=1, S=2048, H=56, KV=8, D=128))):
+        r = flash_train_case(torch, **kw)
+        print_train_case(name, r)
+        cases.append((name, "flash_attention_train", r))
+        torch.cuda.empty_cache()
+
     # 6. mamba layer -----------------------------------------------------------
     mamba_layer_check(torch, ssm, materialize, get_config, ssd_k)
 
@@ -3846,22 +4018,24 @@ def main() -> None:
         "decode_attention": dec_k.decode_attention,
         "paged_decode_attention": dec_k.paged_decode_attention,
         "ssd_scan": ssd_k.ssd_scan}
-    threaded = train_phase(torch, wrappers)
+    # the training path's phases count the training attention's entries too
+    trained = {**wrappers, **fat.ENTRIES}
+    threaded, launches["flash_attention_train"] = train_phase(torch, trained)
 
     # 9. processes and overlap ---------------------------------------------------
-    procs_phase(torch, wrappers, threaded)
+    procs_phase(torch, trained, threaded)
 
     # 10. checkpoint and async PS ------------------------------------------------
-    ckpt_phase(torch, wrappers)
+    ckpt_phase(torch, trained)
 
     # 11. plan -------------------------------------------------------------------
-    plan_phase(torch, wrappers)
+    plan_phase(torch, trained)
 
     # 12. tune (Session.tune) ----------------------------------------------------
     calibration = tune_session_phase(torch, wrappers)
 
     # 13. 1F1B pipeline parallelism ----------------------------------------------
-    pipeline_phase(torch, wrappers, calibration.hbm_bw)
+    pipeline_phase(torch, trained, calibration.hbm_bw)
 
     # 14. MLA, MoE and the dense prelude -------------------------------------------
     cases += moe_mla_phase(torch, mods, wrappers)
@@ -3879,10 +4053,10 @@ def main() -> None:
     records_phase(torch, wrappers)
 
     # 19. the kernels' contracts on the card, and the lint gate ------------------
-    contracts_phase(torch, wrappers)
+    contracts_phase(torch, trained)
 
     # 20. the sharded step and its dry run ----------------------------------------
-    sharded_phase(torch, wrappers)
+    sharded_phase(torch, trained)
 
     # 21. the examples' twins -------------------------------------------------------
     examples_phase(torch, wrappers)

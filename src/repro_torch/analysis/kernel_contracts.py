@@ -1,5 +1,6 @@
-"""Hopper kernel contracts (KC2xx): the launches of the port's four CUDA
-kernels, mirrored in pure math and audited against the H100's limits;
+"""Hopper kernel contracts (KC2xx): the launches of the port's CUDA kernels
+(B1-B4 and the fp32 training attention), mirrored in pure math and audited
+against the H100's limits;
 the port's twin of ``repro.analysis.kernel_contracts`` (KC1xx, the TPU's
 BlockSpec/VMEM rules, which say nothing about a Hopper kernel).
 
@@ -14,7 +15,8 @@ design claims.  The mirror here copies the constants and formulas of the
 - **KC200**: a ``TUNABLE_OPS`` entry (``kernels/ops.py``) that no contract
   covers.
 - **KC201**: a route to a kernel at sizes it has no instantiation for, or
-  that break its entry's checks: D not in {64, 128} (B1-B3),
+  that break its entry's checks: D not in {64, 128} (B1-B3 and the
+  training attention),
   ``H / KV > 16`` (B2, B3), P not in {32, 64}, N not in {16, 32, 64,
   128}, a chunk above 256 rows or not a multiple of 4, ``L % Q``, G1 not
   in [1, 8], R not in [1, 2], more than 4 strip pairs a row block (B4).
@@ -33,7 +35,8 @@ design claims.  The mirror here copies the constants and formulas of the
   ``h / (H / KV)``).
 - **KC206**: the fp32 scratch the wrappers allocate over the card's 80 GB:
   B2's ``splits * B * H * (D + 2)``, B4's states ``B * nc * H * N * P``
-  and its cumsums ``B * L * H``.
+  and its cumsums ``B * L * H``, the training attention's LSE and Delta
+  ``2 * B * H * S``.
 - **KC207**: a 1F1B stage's working set over Eq. 5's HBM budget on the
   H100 (the twin of JAX's KC107, on ``core.memory_model``).
 - **KC208**: mirror drift: the constants and instantiation sets the mirror
@@ -41,7 +44,9 @@ design claims.  The mirror here copies the constants and formulas of the
   ``kpitch``, ``QMAX``, ``MAX_GROUP``, the launch bounds, the D/P/N
   dispatch, the entries' limits), read back from the ``.cu``/``.cuh``
   text, and the wrappers' own copies (``HEAD_DIMS``, ``TILE``,
-  ``P_SIZES``...).  The text is the source of truth.
+  ``P_SIZES``...); for the training attention ``BM``, ``BN``, ``TY``,
+  ``TP``, its launch bounds and its D dispatch.  The text is the source
+  of truth.
 
 The registry sweep routes every arch in ``configs.ARCH_IDS`` as the port
 serves it (``api.session.serve_attn_impl``, ``models.attention.
@@ -51,7 +56,10 @@ at ``decode_32k`` and ``long_500k``, B3 at ``decode_32k`` over pools of
 ``JobSpec.kv_block``, B4 at ``prefill_32k`` for the config's chunk and
 each chunk of ``ops.tune_candidates("ssd_scan")``.  A route to
 ``"dense"`` (MLA, fp32 on a card, a wrapped sliding-window ring) is
-recorded with no contract.
+recorded with no contract.  Training routes every arch's attention in
+bf16 and fp32 at ``train_4k`` as ``attention(impl="auto")`` does on a
+card (``kernels.flash_attention_train.takes``): the three training
+kernels, else ``"chunked"`` (a cap, MLA's head dims, bf16).
 
 :func:`card_check` is the card's side: each ``.cu`` exports an
 ``extern "C"`` query (it launches nothing) that reports, per
@@ -74,6 +82,7 @@ from repro_torch.configs.base import ARCH_IDS, SHAPES, get_config
 from repro_torch.core.hardware import CLUSTERS, H100_SXM, Chip
 from repro_torch.kernels import _launch
 from repro_torch.kernels import decode_attention as dec_k
+from repro_torch.kernels import flash_attention_train as fat_k
 from repro_torch.kernels import ssd_scan as ssd_k
 
 # ---------------------------------------------------------------------------
@@ -118,8 +127,16 @@ SSD_MAX_R = 2
 SSD_PAIR_DIV = 2                    # pairs_max <= NWARPS / 2
 STATE_THREADS = 256
 
+# flash_attention_train.cu
+FLASH_TRAIN = {"BM": 64, "BN": 64, "TY": 16, "TP": 68}
+FLASH_TRAIN_D = (64, 128)
+FLASH_TRAIN_MIN_BLOCKS = {64: 2, 128: 1}  # __launch_bounds__(2 * D, D == 64 ? 2 : 1)
+FLASH_TRAIN_CLAIM = {64: 2, 128: 1}       # two blocks an SM at D = 64
+FLASH_TRAIN_KINDS = ("fwd", "dq", "dkdv")  # flash_train_query's kind 0, 1, 2
+
 KERNEL_FILES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_train": "src/repro_torch/csrc/flash_attention_train.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "paged_decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
@@ -131,6 +148,25 @@ DTYPE_NAMES = {"bfloat16": "bf16", "float32": "fp32"}
 def flash_smem(D: int) -> int:
     """Q, two stages of K and V, 1024 for alignment (``smem_bytes<D>``)."""
     return (FLASH["BQ"] * D + 4 * FLASH["BK"] * D) * 2 + 1024
+
+
+def flash_train_smem(kind: str, D: int) -> int:
+    """``fwd_bytes<D>``, ``dq_bytes<D>``, ``dkdv_bytes<D>``: fp32 tiles,
+    transposed ones of pitch TP, streamed ones of pitch D + 4."""
+    BM, BN, TP = FLASH_TRAIN["BM"], FLASH_TRAIN["BN"], FLASH_TRAIN["TP"]
+    rp = D + 4
+    floats = {
+        "fwd": D * TP + BN * TP + 2 * (2 * BN * rp + BN),  # Q^T, P^T, 2 stages
+        "dq": 2 * D * TP + BN * TP + 2 * BN * rp + BN + BM,
+        "dkdv": 2 * D * TP + 2 * BN * TP + 2 * BN * rp + 3 * BN,
+    }[kind]
+    return 4 * floats
+
+
+def flash_train_launch(kind: str, D: int, grid=(0, 0, 0)) -> "Launch":
+    return Launch(f"{kind}_kernel<{D}>", grid, 2 * D, flash_train_smem(kind, D),
+                  min_blocks=FLASH_TRAIN_MIN_BLOCKS[D],
+                  claimed_blocks=FLASH_TRAIN_CLAIM[D])
 
 
 def decode_smem(D: int) -> int:
@@ -226,6 +262,26 @@ def flash_contract(*, B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
                     claimed_blocks=FLASH_CLAIM[D])
     sizes = (("B", B), ("H", H), ("KV", KV), ("Sq", Sq), ("Sk", Sk), ("D", D))
     return HopperContract(op, context, sizes, (launch,)), []
+
+
+def flash_train_contract(*, B: int, H: int, KV: int, S: int, D: int,
+                         context: str = "flash_attention_train",
+                         ) -> Tuple[Optional[HopperContract], List[Finding]]:
+    """The training attention: the forward and dQ, one block of 2 D
+    threads per (head, 64 queries, batch), and dK/dV, one per (kv head,
+    64 keys, batch); LSE and Delta as scratch."""
+    op = "flash_attention_train"
+    bad = _gqa_faults(op, H, KV, context)
+    if D not in FLASH_TRAIN_D:
+        bad.append(_finding(op, "KC201", f"head dim D={D} has no "
+                            f"instantiation (D in {FLASH_TRAIN_D})", context))
+    if bad:
+        return None, bad
+    n = -(-S // FLASH_TRAIN["BM"])
+    launches = tuple(flash_train_launch(kind, D, (heads, n, B))
+                     for kind, heads in (("fwd", H), ("dq", H), ("dkdv", KV)))
+    sizes = (("B", B), ("H", H), ("KV", KV), ("S", S), ("D", D))
+    return HopperContract(op, context, sizes, launches, 2 * B * H * S * 4), []
 
 
 def decode_contract(*, B: int, H: int, KV: int, S: int, D: int,
@@ -395,7 +451,7 @@ class Route:
     """Where one (op, arch, shape, dtype, slot) goes on the card."""
     op: str
     context: str
-    impl: str  # "kernel" or "dense"
+    impl: str  # "kernel", else "dense" or (training) "chunked"
 
 
 def _tune_chunks() -> Tuple[int, ...]:
@@ -409,6 +465,32 @@ def _kv_block() -> int:
     from repro_torch.api.spec import JobSpec
     return next(f.default for f in dataclasses.fields(JobSpec)
                 if f.name == "kv_block")
+
+
+def train_attn_impl(cfg, mixer: str, batch: int, seq: int) -> str:
+    """What ``attention(impl="auto")`` runs on a card for a training step
+    of ``cfg`` (its compute dtype) at ``batch`` x ``seq``: ``"kernel"``
+    where ``flash_attention_train.takes`` the mixer's q, k and v, else
+    the plain path by length, as ``attention`` picks it."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch.models.attention import AUTO_CHUNKED_ABOVE
+
+    dtype = getattr(torch, cfg.dtype)
+    H = cfg.num_heads
+    if mixer.startswith("mla"):
+        dqk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        shapes = ((H, dqk), (H, dqk), (H, cfg.v_head_dim))
+    else:
+        shapes = ((H, cfg.head_dim),) + ((cfg.num_kv_heads, cfg.head_dim),) * 2
+    q, k, v = (SimpleNamespace(shape=(batch, seq) + hd, dtype=dtype,
+                               device=torch.device("cuda"))
+               for hd in shapes)
+    if fat_k.takes(q, k, v, cfg.attn_softcap):
+        return "kernel"
+    return "chunked" if seq > AUTO_CHUNKED_ABOVE else "dense"
 
 
 def registry_contracts(*, dtypes: Sequence[str] = ("bfloat16", "float32"),
@@ -447,6 +529,12 @@ def registry_contracts(*, dtypes: Sequence[str] = ("bfloat16", "float32"),
             dt = DTYPE_NAMES.get(dtype, dtype)
             mixers = sorted({s.mixer for s in cfg.pattern if s.mixer != "mamba"})
             for mixer in mixers:
+                s = SHAPES["train_4k"].seq_len
+                add("flash_attention_train",
+                    f"flash_attention_train:{arch}:train_4k:{dt}:{mixer}",
+                    train_attn_impl(cfg, mixer, batch, s),
+                    lambda ctx, s=s: flash_train_contract(
+                        B=batch, H=H, KV=KV, S=s, D=D, context=ctx))
                 s = SHAPES["prefill_32k"].seq_len
                 add("flash_attention",
                     f"flash_attention:{arch}:prefill_32k:{dt}:{mixer}", impl,
@@ -652,10 +740,12 @@ def read_sources(csrc: Path = CSRC) -> Dict[str, object]:
     """What the mirror copies, as the sources say it (None where a pattern
     is not found: that is drift too)."""
     fa = (csrc / "flash_attention.cu").read_text()
+    ft = (csrc / "flash_attention_train.cu").read_text()
     tile = (csrc / "attention_tile.cuh").read_text()
     dec = (csrc / "decode_attention.cu").read_text()
     ssd = (csrc / "ssd_scan.cu").read_text()
-    fa_c, tile_c, ssd_c = (source_constants(t) for t in (fa, tile, ssd))
+    fa_c, ft_c, tile_c, ssd_c = (source_constants(t)
+                                 for t in (fa, ft, tile, ssd))
     kp = re.search(r"kpitch\(\)\s*\{\s*return\s+D\s*\+\s*(\d+)\s*;", tile)
     g = re.search(r"H\s*/\s*KV\s*>\s*(\d+)", dec)
     r = re.search(r"R\s*>\s*(\d+)\s*\|\|", ssd)
@@ -667,6 +757,12 @@ def read_sources(csrc: Path = CSRC) -> Dict[str, object]:
         "flash.min_blocks": _ternary(
             r"__launch_bounds__\(NTHREADS,\s*D\s*==\s*(\d+)\s*\?\s*(\d+)"
             r"\s*:\s*(\d+)\)", fa, FLASH_D),
+        "flash_train.BM": ft_c.get("BM"), "flash_train.BN": ft_c.get("BN"),
+        "flash_train.TY": ft_c.get("TY"), "flash_train.TP": ft_c.get("TP"),
+        "flash_train.D": _ints(r"fwd_kernel<(\d+)><<<", ft),
+        "flash_train.min_blocks": _ternary(
+            r"__launch_bounds__\(2\s*\*\s*D,\s*D\s*==\s*(\d+)\s*\?\s*"
+            r"(\d+)\s*:\s*(\d+)\)", ft, FLASH_TRAIN_D),
         "tile.BK": tile_c.get("BK"), "tile.NWARPS": tile_c.get("NWARPS"),
         "tile.NTHREADS": tile_c.get("NTHREADS"),
         "tile.kpitch": int(kp.group(1)) if kp else None,
@@ -692,6 +788,10 @@ def mirror_values() -> Dict[str, object]:
         "flash.BQ": FLASH["BQ"], "flash.BK": FLASH["BK"],
         "flash.NTHREADS": FLASH["NTHREADS"], "flash.D": FLASH_D,
         "flash.min_blocks": dict(FLASH_MIN_BLOCKS),
+        "flash_train.BM": FLASH_TRAIN["BM"], "flash_train.BN": FLASH_TRAIN["BN"],
+        "flash_train.TY": FLASH_TRAIN["TY"], "flash_train.TP": FLASH_TRAIN["TP"],
+        "flash_train.D": FLASH_TRAIN_D,
+        "flash_train.min_blocks": dict(FLASH_TRAIN_MIN_BLOCKS),
         "tile.BK": TILE["BK"], "tile.NWARPS": TILE["NWARPS"],
         "tile.NTHREADS": TILE["NTHREADS"], "tile.kpitch": KPITCH_PAD,
         "decode.D": DECODE_D, "decode.stages": dict(DECODE_STAGES),
@@ -707,13 +807,16 @@ def wrapper_values() -> Dict[str, object]:
     """The wrappers' own copies of the same sizes, as the mirror's keys."""
     return {
         "flash.D": tuple(_launch.HEAD_DIMS), "decode.D": tuple(_launch.HEAD_DIMS),
+        "flash_train.D": tuple(fat_k.HEAD_DIMS),
         "tile.BK": dec_k.TILE, "ssd.P": tuple(ssd_k.P_SIZES),
         "ssd.N": tuple(ssd_k.N_SIZES), "ssd.QMAX": ssd_k.MAX_CHUNK,
         "ssd.MAX_GROUP": ssd_k.MAX_GROUP,
     }
 
 
-_KEY_FILES = {"flash": "flash_attention.cu", "tile": "attention_tile.cuh",
+_KEY_FILES = {"flash": "flash_attention.cu",
+              "flash_train": "flash_attention_train.cu",
+              "tile": "attention_tile.cuh",
               "decode": "decode_attention.cu", "ssd": "ssd_scan.cu"}
 
 
@@ -750,7 +853,8 @@ class CardCase:
 
 
 def card_cases() -> List[CardCase]:
-    """Every instantiation of B1-B4, with the dynamic shared memory its
+    """Every instantiation of B1-B4 and of the training attention's three
+    kernels, with the dynamic shared memory its
     launch sets: B2's combine at the most splits ``decode_splits`` gives,
     B4's passes at the largest chunk and its row blocks."""
     out: List[CardCase] = []
@@ -761,6 +865,12 @@ def card_cases() -> List[CardCase]:
             (D,), Launch(f"flash_kernel<{D}>", none, FLASH["NTHREADS"],
                          flash_smem(D), min_blocks=FLASH_MIN_BLOCKS[D],
                          claimed_blocks=FLASH_CLAIM[D])))
+    for D in FLASH_TRAIN_D:
+        for kind_index, kind in enumerate(FLASH_TRAIN_KINDS):
+            out.append(CardCase(
+                "flash_attention_train", "flash_attention_train",
+                "flash_train_query", (kind_index, D),
+                flash_train_launch(kind, D)))
     splits = dec_k.TARGET_BLOCKS
     for D in DECODE_D:
         for kind, op in ((0, "decode_attention"),

@@ -12,21 +12,25 @@ HEAD_DIMS = (64, 128)
 
 
 def check_inputs(op: str, tensors: Sequence[torch.Tensor],
-                 head_dim: Optional[int] = None) -> None:
-    """Raise unless the kernel can read every tensor as it is: bf16 on one
-    CUDA device, last dim contiguous, every row 16-byte aligned (the
-    kernels load 8 bf16 values at a time), and, for the attention kernels,
-    head dim 64 or 128."""
+                 head_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.bfloat16) -> None:
+    """Raise unless the kernel can read every tensor as it is: ``dtype``
+    (bf16 but for the fp32 training attention) on one CUDA device, last
+    dim contiguous, every row 16-byte aligned (the kernels load 16 bytes
+    at a time), and, for the attention kernels, head dim 64 or 128."""
     dev = tensors[0].device
+    per16 = 16 // torch.empty((), dtype=dtype).element_size()
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{op}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{op}: the CUDA kernel takes bfloat16, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{op}: the CUDA kernel takes {dtype}, got "
+                            f"{t.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{op}: last dim must be contiguous, strides {t.stride()}")
         if t.data_ptr() % 16 or any(
-                s % 8 for n, s in zip(t.shape[:-1], t.stride()[:-1]) if n > 1):
+                s % per16 for n, s in zip(t.shape[:-1], t.stride()[:-1])
+                if n > 1):
             raise ValueError(f"{op}: rows must be 16-byte aligned, strides "
                              f"{t.stride()}")
     if head_dim is not None and head_dim not in HEAD_DIMS:

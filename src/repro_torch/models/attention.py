@@ -9,8 +9,12 @@ a cached single-token decode (MLA's in the absorbed-latent form).
   level oracle the JAX package also keeps);
 * ``"chunked"`` — :func:`chunked_attention`, the blocked online-softmax
   attention in plain PyTorch (JAX's XLA flash reference);
-* ``"auto"``    — ``chunked`` when the key length exceeds 2048, else
-  ``dense``, as in JAX; the training path runs it;
+* ``"auto"``    — the training path's: on the card, fp32 inputs that the
+  fp32 flash kernels with a backward take
+  (``kernels.flash_attention_train.takes``: no cap, one head dim of 64 or
+  128, Sq == Sk) run them at every length; everything else runs
+  ``chunked`` when the key length exceeds 2048, else ``dense``, as in JAX
+  (every CPU tensor, so the CPU follows JAX's choice);
 * ``"kernel"``  — the hand-written CUDA kernels, the counterpart of JAX's
   ``"pallas"``: prefill goes to the flash kernel, decode to the decode
   kernel.  On CPU tensors they run their plain versions.  They have no
@@ -49,6 +53,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import spmd
+from repro_torch.kernels import flash_attention_train as flash_train
 from repro_torch.models.common import ParamSpec, rms_norm, rope, softcap
 
 NEG_INF = -2.0e38
@@ -210,6 +215,9 @@ def attention(q, k, v, q_pos, k_pos, *, scale, window=0, cap=0.0,
         return kops.flash_attention(q, k, v, scale=scale, window=window,
                                     cap=cap)
     if impl == "auto":
+        if flash_train.takes(q, k, v, cap):
+            return flash_train.flash_attention_train(
+                q, k, v, q_pos, k_pos, scale=scale, window=window)
         impl = "chunked" if k.shape[1] > AUTO_CHUNKED_ABOVE else "dense"
     if impl == "chunked":
         return chunked_attention(q, k, v, q_pos, k_pos, scale=scale,

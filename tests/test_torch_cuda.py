@@ -792,3 +792,56 @@ def test_kernel_contracts_hold_on_card(cuda):
         assert r["dyn_smem"] == r["mirror_dyn_smem"] == case.launch.dyn_smem
         assert r["blocks_resident"] >= 1
         assert r["max_threads"] >= r["threads"] == case.launch.threads
+
+
+def _flash_train_case(cuda, B, S, H, KV, D, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn(B, S, n, D, device=cuda, generator=gen)
+               for n in (H, KV, KV))
+    dout = torch.randn(B, S, H, D, device=cuda, generator=gen)
+    pos = torch.arange(S, device=cuda)[None].expand(B, S)
+    return q, k, v, dout, pos
+
+
+def _flash_train_run(fn, q, k, v, dout):
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v)
+    return (out.detach(),) + torch.autograd.grad(out, (q, k, v), dout)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D,window", [
+    (2, 4096, 32, 8, 64, 0),    # granite-train-s4k-fp32
+    (4, 512, 32, 8, 64, 0),     # granite-train-s512-dp4-fp32, a rank
+    (2, 1000, 8, 2, 128, 0),    # D 128, S not a multiple of 64
+    (1, 700, 16, 4, 128, 300),  # D 128 with a window across tiles
+    (3, 200, 4, 4, 64, 48),     # G 1, ragged, a window
+])
+def test_flash_train_kernel_matches_dense(cuda, B, S, H, KV, D, window):
+    """The fp32 training kernels (forward, dQ, dK/dV) against fp32
+    dense_attention under autograd on the card, TF32 off: O and the three
+    gradients within 1e-4 of the largest |reference| (fp32 sums taken in
+    another order over up to S keys); then the same bits on a second
+    call (no atomics), and one launch of each entry a call."""
+    from repro_torch.kernels import flash_attention_train as fat
+    from repro_torch.models.attention import attention, dense_attention
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    q, k, v, dout, pos = _flash_train_case(cuda, B, S, H, KV, D, S + D)
+    scale = 1.0 / np.sqrt(D)
+    assert fat.takes(q, k, v)
+    before = {n: fn.launches for n, fn in fat.ENTRIES.items()}
+    got = _flash_train_run(lambda *a: attention(
+        *a, pos, pos, scale=scale, window=window, impl="auto"), q, k, v, dout)
+    torch.cuda.synchronize()
+    assert {n: fn.launches - before[n] for n, fn in fat.ENTRIES.items()} \
+        == {n: 1 for n in fat.ENTRIES}
+    want = _flash_train_run(lambda *a: dense_attention(
+        *a, pos, pos, scale=scale, window=window), q, k, v, dout)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        err = (g - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item(), (name, err)
+    again = _flash_train_run(lambda *a: fat.flash_attention_train(
+        *a, pos, pos, scale=scale, window=window), q, k, v, dout)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
