@@ -74,6 +74,10 @@ class ModelConfig:
     num_shared_experts: int = 0
     top_k: int = 0
     moe_d_ff: int = 0
+    # experts a device holds of each MoE layer (the first ones): 0 holds
+    # all ``num_experts``; fewer is one card's share of expert parallelism,
+    # routed over all ``num_experts`` with no exchange (``models/moe.py``)
+    experts_held: int = 0
 
     # SSM (Mamba2 / SSD)
     ssm_state: int = 0

@@ -103,8 +103,15 @@ def sharding_rules(mesh, cfg: ModelConfig, shape: Optional[ShapeConfig] = None,
     TP ("model"): heads / ff / experts / d_inner / vocab.  FSDP adds the
     data-parallel axes on the ``embed`` dim (gathered layer by layer).  KV
     caches: batch on data axes, sequence on "model", and on (data + model)
-    when the batch cannot cover the data axes (long_500k, B = 1).
+    when the batch cannot cover the data axes (long_500k, B = 1).  A
+    config that holds a share of its experts (``experts_held``, a
+    one-card cut) has no layout on a mesh and is refused.
     """
+    if cfg.experts_held:
+        raise ValueError(
+            f"{cfg.name}: experts_held {cfg.experts_held} is a one-card "
+            "share of the experts, not a mesh layout; the mesh shards all "
+            f"{cfg.num_experts} over 'model'")
     dp = dp_axes(mesh)
     batch_rule: object = dp
     kv_seq_rule: object = ("model",)

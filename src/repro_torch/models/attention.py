@@ -54,6 +54,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import spmd
 from repro_torch.kernels import flash_attention_train as flash_train
+from repro_torch.models import spans
 from repro_torch.models.common import ParamSpec, rms_norm, rope, softcap
 
 NEG_INF = -2.0e38
@@ -206,10 +207,21 @@ def _check_impl(impl: str) -> None:
 
 def attention(q, k, v, q_pos, k_pos, *, scale, window=0, cap=0.0,
               impl="dense", kv_block=1024, q_block=2048):
-    """Full-sequence attention.  ``impl="kernel"`` takes no positions: the
-    flash kernel is causal from position 0, which holds for whole-prompt
-    prefill, the only caller."""
+    """Full-sequence attention, inside the span ``attn/core``
+    (``models/spans.py``; its backward holds the gradients of q, k and v).
+    ``impl="kernel"`` takes no positions: the flash kernel is causal from
+    position 0, which holds for whole-prompt prefill, the only caller."""
     _check_impl(impl)
+    return spans.layer(
+        "attn/core",
+        lambda q, k, v: _attention(q, k, v, q_pos, k_pos, scale=scale,
+                                   window=window, cap=cap, impl=impl,
+                                   kv_block=kv_block, q_block=q_block),
+        q, k, v)
+
+
+def _attention(q, k, v, q_pos, k_pos, *, scale, window, cap, impl,
+               kv_block, q_block):
     if impl == "kernel":
         from repro_torch.kernels import ops as kops
         return kops.flash_attention(q, k, v, scale=scale, window=window,

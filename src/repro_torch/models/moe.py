@@ -12,6 +12,20 @@ by expert (stable), each expert takes at most ``C`` of them into an
 port's dispatch and combine pick JAX's assignments and JAX's order of
 additions, and are deterministic on the card: no index a backward pass
 accumulates into is hit twice (see :func:`moe_mlp`).
+
+A device may hold fewer experts than the router routes over
+(``cfg.experts_held``: one card's share of expert parallelism, the first
+``experts_held`` of each layer): every token is still routed over all
+``num_experts`` with the same capacity, the held experts compute their
+kept assignments, and an assignment to an expert not held adds nothing.
+There is no exchange, so this is a one-card cut, not a mesh layout;
+:func:`moe_mlp_sharded` refuses it.
+
+Inside ``model/mlp`` the pieces are spans of their own
+(``models/spans.py``): ``moe/route``, ``moe/dispatch``, ``moe/experts``,
+``moe/combine`` and ``moe/shared``; the counters ``moe.kept`` and
+``moe.dropped`` add up the assignments to held experts that capacity
+kept and dropped.
 """
 from __future__ import annotations
 
@@ -22,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import spmd
+from repro_torch.models import spans
 from repro_torch.models.common import ParamSpec, swish
 
 
@@ -48,14 +63,24 @@ def dense_mlp(p, x):
 # ---------------------------------------------------------------------------
 
 
+def held_experts(cfg: ModelConfig) -> int:
+    """The experts a device holds of each layer: ``experts_held``, or all
+    ``num_experts`` where it is 0."""
+    if not 0 <= cfg.experts_held <= cfg.num_experts:
+        raise ValueError(f"experts_held {cfg.experts_held} is not within "
+                         f"the {cfg.num_experts} experts")
+    return cfg.experts_held or cfg.num_experts
+
+
 def moe_specs(cfg: ModelConfig, layers: int) -> Dict[str, ParamSpec]:
     D, F_, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    H = held_experts(cfg)
     L, la = (layers,), ("layers",)
     s = {
         "router": ParamSpec(L + (D, E), la + ("embed", None), scale=0.1),
-        "w_gate": ParamSpec(L + (E, D, F_), la + ("experts", "embed", None)),
-        "w_up": ParamSpec(L + (E, D, F_), la + ("experts", "embed", None)),
-        "w_down": ParamSpec(L + (E, F_, D), la + ("experts", None, "embed")),
+        "w_gate": ParamSpec(L + (H, D, F_), la + ("experts", "embed", None)),
+        "w_up": ParamSpec(L + (H, D, F_), la + ("experts", "embed", None)),
+        "w_down": ParamSpec(L + (H, F_, D), la + ("experts", None, "embed")),
     }
     if cfg.num_shared_experts:
         s["shared"] = dense_mlp_specs(D, cfg.moe_d_ff * cfg.num_shared_experts, layers)
@@ -105,15 +130,18 @@ def route(p, xf: torch.Tensor, cfg: ModelConfig, capacity_factor: float):
 
 def moe_mlp(p, x, cfg: ModelConfig, *, capacity_factor: float = 1.25):
     """x (B, S, D) -> ((B, S, D), aux); sort-based dispatch with
-    per-expert capacity ``C = max(int(cf * T * K / E) + 1, 4)``: every
-    expert's pass (:func:`_local_expert_pass` over all E)."""
+    per-expert capacity ``C = max(int(cf * T * K / E) + 1, 4)``: the held
+    experts' pass (:func:`_local_expert_pass` over the first
+    :func:`held_experts`, all E unless ``cfg.experts_held``), and the
+    shared experts whole."""
     B, S, D = x.shape
     out, aux = _local_expert_pass(
         x.reshape(B * S, D), p["router"], p["w_gate"], p["w_up"],
-        p["w_down"], cfg, capacity_factor, 0, cfg.num_experts)
+        p["w_down"], cfg, capacity_factor, 0, held_experts(cfg))
     out = out.to(x.dtype).reshape(B, S, D)
     if cfg.num_shared_experts:
-        out = out + dense_mlp(p["shared"], x)
+        out = out + spans.layer(
+            "moe/shared", lambda u: dense_mlp(p["shared"], u), x)
     return out, aux
 
 
@@ -140,33 +168,50 @@ def _local_expert_pass(xf, router_w, wg, wu, wd, cfg: ModelConfig,
     """
     T, D = xf.shape
     K = cfg.top_k
-    r = route({"router": router_w}, xf, cfg, capacity_factor)
+
+    def routed(x):
+        r = route({"router": router_w}, x, cfg, capacity_factor)
+        return r["sw"], r
+
+    sw, r = spans.layer("moe/route", routed, xf)
     C, order, se = r["C"], r["order"], r["se"]
-    local = (se >= e_lo) & (se < e_lo + e_loc) & r["keep"]
+    held = (se >= e_lo) & (se < e_lo + e_loc)
+    local = held & r["keep"]
+    spans.count("moe.kept", lambda: local.sum())
+    spans.count("moe.dropped", lambda: (held & ~r["keep"]).sum())
     slot = torch.where(local, r["slot"] - e_lo * C,
                        torch.full_like(se, e_loc * C))
 
-    xs = xf[:, None].expand(T, K, D).reshape(T * K, D)[order]
-    buf = xf.new_zeros((e_loc * C + 1, D)).index_put((slot,), xs)
-    h = buf[: e_loc * C].reshape(e_loc, C, D)
-    y = torch.einsum(
-        "ecf,efd->ecd",
-        swish(torch.einsum("ecd,edf->ecf", h, wg))
-        * torch.einsum("ecd,edf->ecf", h, wu),
-        wd)
-    y = torch.cat([y.reshape(e_loc * C, D), y.new_zeros((1, D))], dim=0)
+    def dispatch(x):
+        xs = x[:, None].expand(T, K, D).reshape(T * K, D)[order]
+        buf = x.new_zeros((e_loc * C + 1, D)).index_put((slot,), xs)
+        return buf[: e_loc * C].reshape(e_loc, C, D)
+
+    def experts(h):
+        y = torch.einsum(
+            "ecf,efd->ecd",
+            swish(torch.einsum("ecd,edf->ecf", h, wg))
+            * torch.einsum("ecd,edf->ecf", h, wu),
+            wd)
+        return torch.cat([y.reshape(e_loc * C, D), y.new_zeros((1, D))],
+                         dim=0)
 
     # combine: v[i] is sorted assignment i's weighted output (fp32); a
     # token's assignments sit at the sorted positions inv[t*K:(t+1)*K],
     # whose ascending order is ascending expert order
-    v = (y[slot] * torch.where(local, r["sw"], 0.0)[:, None]).float()
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(T * K, device=order.device)
-    v_tok = v[torch.sort(inv.reshape(T, K), dim=-1).values]  # (T, K, D)
-    out = torch.zeros((T, D), dtype=torch.float32, device=xf.device)
-    for j in range(K):
-        out = out + v_tok[:, j]
-    return out, r["aux"]
+    def combine(y, w):
+        v = (y[slot] * torch.where(local, w, 0.0)[:, None]).float()
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(T * K, device=order.device)
+        v_tok = v[torch.sort(inv.reshape(T, K), dim=-1).values]  # (T, K, D)
+        out = torch.zeros((T, D), dtype=torch.float32, device=xf.device)
+        for j in range(K):
+            out = out + v_tok[:, j]
+        return out
+
+    h = spans.layer("moe/dispatch", dispatch, xf)
+    y = spans.layer("moe/experts", experts, h)
+    return spans.layer("moe/combine", combine, y, sw), r["aux"]
 
 
 def moe_mlp_sharded(p, x, cfg: ModelConfig, *, mesh, axis: str = "model",
@@ -185,6 +230,11 @@ def moe_mlp_sharded(p, x, cfg: ModelConfig, *, mesh, axis: str = "model",
     is averaged over the batch's axes and ``axis`` (every axis, unless a
     batch smaller than the data axes is whole on every rank).  The
     capacity is a shard's: T is its B/dp * S tokens, as in JAX."""
+    if cfg.experts_held:
+        raise ValueError(
+            f"experts_held {cfg.experts_held}: a held share of the experts "
+            "is a one-card cut with no exchange, not a mesh layout; shard "
+            "the experts over the mesh's axis instead")
     ctx = mesh
     g = ctx.group(axis)
     tp = ctx.size(axis)
@@ -203,8 +253,9 @@ def moe_mlp_sharded(p, x, cfg: ModelConfig, *, mesh, axis: str = "model",
            else spmd.reduce_from(out, g)).to(x.dtype)
     aux = spmd.pmean(aux, ctx.group(ctx.rule("batch") + (axis,)))
     if cfg.num_shared_experts:
-        shared = dense_mlp(p["shared"], spmd.gather_dim(x, g, 1)
-                           if seq_sharded else spmd.copy_to(x, g))
+        shared = spans.layer(
+            "moe/shared", lambda u: dense_mlp(p["shared"], u),
+            spmd.gather_dim(x, g, 1) if seq_sharded else spmd.copy_to(x, g))
         out = out + (spmd.scatter_dim(shared, g, 1) if seq_sharded
                      else spmd.reduce_from(shared, g))
     return out, aux

@@ -11,6 +11,14 @@ is opened by an identity autograd function at the layer's output when
 the output's gradient arrives, and closed by one at the layer's input
 when the input's gradient leaves.  They are applied only while the
 current tracer is enabled: a disabled tracer adds no autograd node.
+
+:func:`layer` spans a piece inside a layer the same way, outside the
+``model/`` area so that a layer still holds every kernel of its pieces:
+``attn/core`` (the attention core, ``models/attention.py``) and
+``moe/route``, ``moe/dispatch``, ``moe/experts``, ``moe/combine`` and
+``moe/shared`` (``models/moe.py``).  :func:`count` adds to a counter of
+the current tracer in the forward pass (``moe.kept``, ``moe.dropped``);
+the value stays on the device until the tracer's counts are read.
 """
 from __future__ import annotations
 
@@ -39,17 +47,18 @@ class _Backward:
 
 
 class _OnGrad(torch.autograd.Function):
-    """The identity; its backward calls ``action`` as the gradient passes."""
+    """The identity on ``xs``; its backward calls ``action`` once, when the
+    gradients of all of them have arrived."""
 
     @staticmethod
-    def forward(ctx, x, action):
+    def forward(ctx, action, *xs):
         ctx.action = action
-        return x.detach()
+        return tuple(x.detach() for x in xs)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, *gs):
         ctx.action()
-        return g, None
+        return (None,) + gs
 
 
 def _in_backward() -> bool:
@@ -58,24 +67,38 @@ def _in_backward() -> bool:
     return torch._C._current_graph_task_id() >= 0
 
 
-def layer(name: str, fn, x):
-    """``fn(x)`` inside span ``name``: ``x`` is the layer's input tensor
-    (the backward span closes when its gradient leaves), and the output
-    (or the first element of a tuple output) is the layer's output."""
+def layer(name: str, fn, *xs):
+    """``fn(*xs)`` inside span ``name``: ``xs`` are the layer's input
+    tensors (the backward span closes when the gradients of all of them
+    that take one have left), and the output (or the first element of a
+    tuple output) is the layer's output."""
     tr = trace.current()
     if not tr.enabled:
-        return fn(x)
+        return fn(*xs)
     recompute = _in_backward()
     bwd = None
-    if not recompute and torch.is_grad_enabled() and x.requires_grad:
+    grads = [i for i, x in enumerate(xs) if x.requires_grad]
+    if not recompute and torch.is_grad_enabled() and grads:
         bwd = _Backward(tr, f"{name}@bwd")
-        x = _OnGrad.apply(x, bwd.close)
+        xs = list(xs)
+        for i, x in zip(grads, _OnGrad.apply(bwd.close,
+                                             *[xs[i] for i in grads])):
+            xs[i] = x
     with tr.span(f"{name}@{'recompute' if recompute else 'fwd'}"):
-        out = fn(x)
+        out = fn(*xs)
     if bwd is None:
         return out
     first = out[0] if isinstance(out, tuple) else out
     if not first.requires_grad:
         return out
-    first = _OnGrad.apply(first, bwd.open)
+    (first,) = _OnGrad.apply(bwd.open, first)
     return (first,) + tuple(out[1:]) if isinstance(out, tuple) else first
+
+
+def count(name: str, value) -> None:
+    """Add ``value()`` (a device tensor, not read here) to counter ``name``
+    of the current tracer while it is enabled, in the forward pass only:
+    block remat's recompute counts nothing twice."""
+    tr = trace.current()
+    if tr.enabled and not _in_backward():
+        tr.count(name, value())

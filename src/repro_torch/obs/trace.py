@@ -20,6 +20,9 @@ pay off when step time, comm time, and overlap are observable quantities.
   to the span their launch fell in.  Threads the program starts itself
   (the loader's producer, the trainer's communication thread) are not
   followed by the profiler: their spans are in the tracer's log alone.
+- ``count(name, value)`` adds to a counter while the tracer is enabled
+  (a device tensor stays on its device), and ``counts()`` reads and
+  clears them once, after the steps it covers.
 - ``chrome_trace()`` / ``save()`` export the tracer's own log as Chrome
   ``traceEvents`` JSON (load in ``chrome://tracing`` or Perfetto).
 - A *disabled* tracer is free: ``span()`` returns a shared no-op singleton
@@ -189,6 +192,8 @@ class Tracer:
         self._epoch = clock()
         self._events: List[SpanEvent] = []
         self._local = threading.local()
+        self._counts: Dict[str, Any] = {}
+        self._counts_lock = threading.Lock()
         self.dropped = 0
 
     # -- span creation -----------------------------------------------------
@@ -202,6 +207,23 @@ class Tracer:
         if not self._enabled:
             return NULL_SPAN
         return Span(self, name, args or None)
+
+    def count(self, name: str, value) -> None:
+        """Add ``value`` (a number, or a tensor left on its device: no
+        synchronize) to counter ``name``; a disabled tracer counts
+        nothing."""
+        if not self.enabled:
+            return
+        with self._counts_lock:  # ranks in threads share one tracer
+            prev = self._counts.get(name)
+            self._counts[name] = value if prev is None else prev + value
+
+    def counts(self) -> Dict[str, float]:
+        """Every counter as a float (one read of the device each), and
+        the counters cleared."""
+        with self._counts_lock:
+            counts, self._counts = self._counts, {}
+        return {k: float(v) for k, v in sorted(counts.items())}
 
     # -- internals ---------------------------------------------------------
     def _thread_stack(self) -> List[str]:
@@ -238,6 +260,8 @@ class Tracer:
 
     def clear(self) -> None:
         self._events = []
+        with self._counts_lock:
+            self._counts = {}
         self.dropped = 0
         self._epoch = self._clock()
 

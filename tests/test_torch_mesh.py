@@ -124,7 +124,10 @@ def test_dryrun_knobs_equal_jax(arch):
         (v, name), (jv, jname) = (D.variant_config(cfg, SHAPES[shape]),
                                   jdry.variant_config(jcfg, JSHAPES[shape]))
         assert name == jname
-        assert dataclasses.asdict(v) == dataclasses.asdict(jv)
+        # the port's one field that JAX's lacks holds every expert here
+        tv = dataclasses.asdict(v)
+        assert tv.pop("experts_held") == 0
+        assert tv == dataclasses.asdict(jv)
         for n in (1, 2):
             assert D._reduced_cycles(v, n).num_layers == \
                 jdry._reduced_cycles(jv, n).num_layers

@@ -567,7 +567,10 @@ def test_deepened_reduced_config_equals_jax(pipe):
     spec = dict(arch="granite-3-2b", pipe=pipe, steps=1, batch=8, seq=16)
     got = Session(JobSpec(**spec), device="cpu").cfg
     want = JSession(JJobSpec(**spec)).cfg
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    # the port's one field that JAX's lacks holds every expert here
+    got_d = dataclasses.asdict(got)
+    assert got_d.pop("experts_held") == 0
+    assert got_d == dataclasses.asdict(want)
     assert TM.main_cycles(got) == 2 * pipe
 
 

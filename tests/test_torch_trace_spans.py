@@ -212,8 +212,8 @@ def test_a_disabled_tracer_adds_nothing(arch):
             assert len(tr) == 0
     assert sizes["null"] == sizes["off"] == sizes["profiler"] == sizes["none"]
     # two identities a layer span: embed, head_loss, and per layer the
-    # block, the mixer and (granite) the MLP
-    per_layer = 3 if cfg.d_ff else 2
+    # block, the mixer, the MLP and (granite) the attention core
+    per_layer = (3 if cfg.d_ff else 2) + (1 if cfg.has_attention else 0)
     assert sizes["on"] == sizes["none"] + 2 * (2 + per_layer * LAYERS)
     assert trace.current() is NULL_TRACER
 
